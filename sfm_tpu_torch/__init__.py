@@ -11,10 +11,13 @@ easy to find:
   a hand-written CUDA kernel (``csrc/``) beside its plain PyTorch version
 - ``sfm_tpu_torch.features``  — corner detection, descriptors, matcher
 - ``sfm_tpu_torch.sfm``       — RANSAC, track store, sparse pipeline
+- ``sfm_tpu_torch.ba``        — points-only Levenberg-Marquardt bundle adjustment
+- ``sfm_tpu_torch.mvs``       — seeding, photo-consistency, expansion rounds
 - ``sfm_tpu_torch.utils``     — metrics, timing, synthetic scenes, builds
 
-Only the sparse SfM stage is ported so far; bundle adjustment and dense MVS
-live in ``sfm_tpu`` only.  This package never imports jax.
+The main path (sfm, ba, mvs) is ported; joint BA, the outlier filter,
+checkpoints and multi-device runs live in ``sfm_tpu`` only so far.  This
+package never imports jax.
 """
 
 __version__ = "0.1.0"

@@ -1,11 +1,13 @@
 """Command-line entry point, counterpart of ``sfm_tpu/cli.py``.
 
-Takes the same flags (plus ``--device``).  Only the SfM stage is ported:
-``--stages sfm`` writes ``sparse_points.ply`` and prints the same summary
-JSON keys; asking for ``ba`` or ``mvs`` exits with code 2.
+Takes the same flags (plus ``--device``) and runs the same stages: ``sfm``
+writes ``sparse_points.ply``, ``ba`` (points-only bundle adjustment)
+``sparse_points_ba.ply``, ``mvs`` ``initial_patches.ply`` and
+``all_patches.ply``, and the summary JSON has the same keys.  Flags whose
+machinery is not ported yet (``NOT_PORTED``) exit with code 2.
 
 Run: ``python -m sfm_tpu_torch.cli -img_p DIR -par_p DIR/x_par.txt -t png
---stages sfm [--device cuda]``.
+[--stages sfm,ba,mvs] [--device cuda]``.
 """
 
 from __future__ import annotations
@@ -15,7 +17,11 @@ import json
 import os
 import sys
 
-PORTED_STAGES = ("sfm",)
+STAGES = ("sfm", "ba", "mvs")
+# Flags of sfm_tpu/cli.py whose machinery is not ported yet (ROADMAP queue 1
+# items 10-14): each exits 2 instead of running the default path.
+NOT_PORTED = ("refine_cameras", "enable_outlier_filter", "checkpoint_dir",
+              "mesh_devices", "plot", "debug", "profile_dir")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -55,7 +61,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ba_dtype", default=None,
                    help="float32|float64 (default: f32 on cuda, f64 on cpu)")
     p.add_argument("--stages", default="sfm,ba,mvs",
-                   help="comma list from {sfm,ba,mvs}; only sfm is ported")
+                   help="comma list from {sfm,ba,mvs}")
     p.add_argument("--out_dir", default=".")
     p.add_argument("--checkpoint_dir", default=None)
     p.add_argument("--mvs_checkpoint_every", type=int, default=16)
@@ -119,7 +125,7 @@ def config_from_args(args):
 
 def main(argv=None) -> int:
     """CLI entry point; bad input and pipeline errors exit 1 with a message,
-    a stage that is not ported exits 2."""
+    an unknown stage or a flag that is not ported exits 2."""
     try:
         return _main(argv)
     except (RuntimeError, FileNotFoundError, ValueError) as e:
@@ -130,22 +136,21 @@ def main(argv=None) -> int:
 def _main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     stages = [s.strip() for s in args.stages.split(",") if s.strip()]
-    missing = [s for s in stages if s not in PORTED_STAGES]
-    if missing:
-        print(f"error: stage(s) {','.join(missing)} not yet ported in "
-              "sfm_tpu_torch", file=sys.stderr)
+    unknown = [s for s in stages if s not in STAGES]
+    if unknown:
+        print(f"error: unknown stage(s) {','.join(unknown)}", file=sys.stderr)
         return 2
-    for opt in ("checkpoint_dir", "mesh_devices", "profile_dir", "plot",
-                "debug"):
+    for opt in NOT_PORTED:
         if getattr(args, opt):
             print(f"error: --{opt} not yet ported in sfm_tpu_torch",
                   file=sys.stderr)
             return 2
     config = config_from_args(args)
+    device = config.runtime.device
     os.makedirs(args.out_dir, exist_ok=True)
 
     from sfm_tpu_torch.io import load_images, read_pars
-    from sfm_tpu_torch.sfm import structure_from_motion
+    from sfm_tpu_torch.io.ply import export_ply
     from sfm_tpu_torch.utils.metrics import StageTimer
 
     timers = StageTimer()
@@ -157,16 +162,59 @@ def _main(argv=None) -> int:
         calib = calib.subset(range(images.shape[0]))
     print(f"loaded {images.shape[0]} images {images.shape[1]}x{images.shape[2]}")
 
+    recon = None
     summary = {}
-    with timers.stage("sfm"):
-        recon = structure_from_motion(images, calib, config)
-    mean_reproj = recon.mean_reprojection_error()
-    print(f"sparse: {recon.num_tracks} tracks, "
-          f"{recon.num_observations} observations, "
-          f"mean reproj {mean_reproj:.3f}px")
-    recon.export_ply(os.path.join(args.out_dir, "sparse_points.ply"))
-    summary["sparse_tracks"] = recon.num_tracks
-    summary["sparse_mean_reproj_px"] = mean_reproj
+    if "sfm" in stages:
+        from sfm_tpu_torch.sfm import structure_from_motion
+
+        with timers.stage("sfm"):
+            recon = structure_from_motion(images, calib, config)
+        mean_reproj = recon.mean_reprojection_error()
+        print(f"sparse: {recon.num_tracks} tracks, "
+              f"{recon.num_observations} observations, "
+              f"mean reproj {mean_reproj:.3f}px")
+        recon.export_ply(os.path.join(args.out_dir, "sparse_points.ply"))
+        summary["sparse_tracks"] = recon.num_tracks
+        summary["sparse_mean_reproj_px"] = mean_reproj
+
+    if "ba" in stages or "mvs" in stages:
+        if recon is None:
+            # sfm_tpu resumes from a checkpoint here; checkpoints are not
+            # ported yet.
+            print("error: BA/MVS requested but no sparse reconstruction "
+                  "(run the sfm stage too)", file=sys.stderr)
+            return 2
+
+    if "ba" in stages:
+        from sfm_tpu_torch.ba import bundle_adjust
+
+        with timers.stage("ba"):
+            recon, info = bundle_adjust(recon, config.ba, device=device)
+        ba_rms = recon.rms_reprojection_error()
+        print(f"ba: cost {info['final_cost']:.4g} after {info['iterations']} "
+              f"iterations; rms reproj {ba_rms:.3f}px")
+        recon.export_ply(os.path.join(args.out_dir, "sparse_points_ba.ply"))
+        summary["ba_final_cost"] = info["final_cost"]
+        summary["ba_rms_reproj_px"] = ba_rms
+
+    if "mvs" in stages:
+        from sfm_tpu_torch.mvs import dense_reconstruction
+
+        with timers.stage("mvs"):
+            dense = dense_reconstruction(
+                images, recon.calib, recon, config.mvs, scale=args.scale,
+                device=device, kernels=config.runtime.kernels,
+            )
+        print(f"mvs: {dense.num_seeds} seeds -> {dense.num_points} points "
+              f"in {dense.metrics.values['mvs_rounds']} rounds")
+        export_ply(
+            os.path.join(args.out_dir, "initial_patches.ply"),
+            dense.points[: dense.num_seeds], dense.colors[: dense.num_seeds],
+        )
+        dense.export_ply(os.path.join(args.out_dir, "all_patches.ply"))
+        summary["mvs_seeds"] = dense.num_seeds
+        summary["mvs_points"] = dense.num_points
+
     summary["timers_s"] = {k: round(v, 3) for k, v in timers.times.items()}
     print(json.dumps(summary))
     print("stage timers:")

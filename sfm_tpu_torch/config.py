@@ -6,7 +6,8 @@ config reads the same in both packages.  The one difference is
 ``RuntimeConfig``: the JAX package's ``use_pallas`` becomes ``device`` plus
 the ``kernels`` switch.  Fields that only drive JAX/TPU machinery
 (``pairs_per_step``, ``shape_buckets``, ``rounds_per_call``,
-``overlap_seed_fetch``) stay so configs carry over; nothing here reads them.
+``overlap_seed_fetch``) stay so configs carry over; nothing here reads them
+(each one leaves the JAX package's output unchanged too).
 """
 
 from __future__ import annotations
@@ -53,7 +54,11 @@ class SfmConfig:
 
 @dataclass(frozen=True)
 class BaConfig:
-    """Bundle adjustment (not yet ported; fields kept for config parity)."""
+    """Bundle adjustment: points-only Levenberg-Marquardt (ba/).
+
+    ``refine_cameras=True`` (joint BA) is not ported yet and raises; the
+    ``dense_schur_*`` fields only steer the joint solve.
+    """
 
     max_iterations: int = 50
     ftol: float = 1e-4
@@ -70,7 +75,10 @@ class BaConfig:
 
 @dataclass(frozen=True)
 class MvsConfig:
-    """Patch-based dense reconstruction (not yet ported; fields kept)."""
+    """Patch-based dense reconstruction (mvs/).
+
+    ``enable_outlier_filter=True`` is not ported yet and raises.
+    """
 
     cell_size: int = 2
     patch_wid: int = 5
@@ -87,6 +95,41 @@ class MvsConfig:
     enable_outlier_filter: bool = False
     overlap_seed_fetch: bool = True
     shape_buckets: bool = True
+
+
+def mvs_device_knobs(config: MvsConfig) -> MvsConfig:
+    """The fields of ``config`` that change what a seed or expansion round
+    computes (thresholds, patch/cell geometry, view gate), on top of the
+    defaults; budgets, capacity and the scheduling toggles are host-loop
+    knobs.  Same contract as ``sfm_tpu.config.mvs_device_knobs``."""
+    return dataclasses.replace(
+        MvsConfig(),
+        cell_size=config.cell_size,
+        patch_wid=config.patch_wid,
+        min_ncc_seed=config.min_ncc_seed,
+        min_ncc_expand=config.min_ncc_expand,
+        visible_lower_bound=config.visible_lower_bound,
+        coplanarity_threshold=config.coplanarity_threshold,
+        neighbor_radius_scaled=config.neighbor_radius_scaled,
+        max_photo_views=config.max_photo_views,
+    )
+
+
+def resolve_photo_views(max_photo_views: int, n_images: int) -> int:
+    """Resolve ``MvsConfig.max_photo_views`` against the rig size.
+
+    -1 (auto) -> 5 on rigs of >= 16 images, else 0 (score every view);
+    explicit values pass through.  1 is rejected: it leaves no
+    non-reference view to score.
+    """
+    if max_photo_views == 1:
+        raise ValueError(
+            "max_photo_views=1 leaves no non-reference view to score; "
+            "use 0 (all views) or >= 2"
+        )
+    if max_photo_views < 0:
+        return 5 if n_images >= 16 else 0
+    return max_photo_views
 
 
 @dataclass(frozen=True)
@@ -161,3 +204,22 @@ def from_jax_config(cfg, device: str = RuntimeConfig.device) -> PipelineConfig:
         if f.name not in subs and f.name != "runtime"
     }
     return PipelineConfig(**top, **subs, runtime=runtime)
+
+
+def sparse_from_jax(recon):
+    """Turn an ``sfm_tpu`` SparseReconstruction into this package's, from
+    its numpy fields (``calib.K/R/t/names``, ``world``, ``track_offsets``,
+    ``track_obs``): the state carried across, so one sparse result can feed
+    both packages' BA and MVS.  Reads attributes only (no jax import)."""
+    import numpy as np
+
+    from sfm_tpu_torch.io.calib import Calibration
+    from sfm_tpu_torch.sfm.pipeline import SparseReconstruction
+
+    c = recon.calib
+    return SparseReconstruction(
+        calib=Calibration.from_numpy(c.K, c.R, c.t, c.names),
+        world=np.array(recon.world, np.float64),
+        track_offsets=np.array(recon.track_offsets, np.int64),
+        track_obs=np.array(recon.track_obs, np.int32),
+    )

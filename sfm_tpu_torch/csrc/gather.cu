@@ -3,7 +3,8 @@
 //
 // Replaces: sfm_tpu/ops/gather.py, _make_kernel -> kernel (the Pallas TPU
 // kernel behind sample_normalized_patches).  Per sample (image, cx, cy):
-// base = clip(floor(c) - wid, 0, dim - (2*wid+2)); read the (2*wid+2)^2
+// base = clip(floor(c) - wid, 0, dim - (2*wid+2)) (taken in float, so any
+// centre, NaN and +-inf included, reads inside the stack); read the (2*wid+2)^2
 // window of the bf16 stack; interpolate with (fx, fy) = frac(c); subtract
 // the mean; divide by max(||.||_2, 1e-8); write bf16.  The in-bounds mask is
 // computed by the wrapper, as in the JAX package.
@@ -60,8 +61,21 @@ __global__ void gather_kernel(const __nv_bfloat16* __restrict__ gray,
   const float fy = __fsub_rn(y, y0);
   const float gx = __fsub_rn(1.0f, fx);
   const float gy = __fsub_rn(1.0f, fy);
-  const int bx = min(max(static_cast<int>(x0) - wid, 0), w - win);
-  const int by = min(max(static_cast<int>(y0) - wid, 0), h - win);
+  // The window origin is clamped in float before the cast to int.  An
+  // int-first clamp (static_cast<int>(x0) - wid) overflows for centres
+  // beyond +-2^31 or infinite (the cast saturates to INT_MIN, and
+  // INT_MIN - wid is undefined); an expansion candidate whose ray is
+  // near-parallel to its parent plane has such a centre.  fmaxf takes the
+  // non-NaN operand, so a NaN centre reads the window at 0.  For finite
+  // centres x0 - wid is exact (|x0| < 2^24) or clamps to the same edge,
+  // so the origin is unchanged.  Such samples are out of bounds in the
+  // wrapper's mask; only the read has to stay inside the stack.
+  const int bx = static_cast<int>(fminf(
+      fmaxf(__fsub_rn(x0, static_cast<float>(wid)), 0.0f),
+      static_cast<float>(w - win)));
+  const int by = static_cast<int>(fminf(
+      fmaxf(__fsub_rn(y0, static_cast<float>(wid)), 0.0f),
+      static_cast<float>(h - win)));
   const int img = min(max(img_idx[s], 0), n - 1);
   const __nv_bfloat16* base =
       gray + (static_cast<size_t>(img) * h + by) * w + bx;

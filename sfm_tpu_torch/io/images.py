@@ -2,15 +2,18 @@
 
 ``load_images`` globs ``{dir}/*.{type}``, sorts, and stacks RGB uint8 (PIL
 is imported there only: the rest of the package runs without it).
-``gray_tensor`` is the counterpart of ``sfm_tpu``'s ``device_gray``:
-grayscale is computed and rounded to uint8 on the host, then converted to
-float32 on the device.
+``gray_tensor`` converts: grayscale is computed and rounded to uint8 on the
+host, then converted to float32 on the device.  ``device_gray`` is the
+counterpart of ``sfm_tpu``'s: the same conversion, cached per process so
+the SfM and MVS stages share one conversion and one upload.
 """
 
 from __future__ import annotations
 
 import glob
 import os
+import weakref
+import zlib
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -61,3 +64,40 @@ def gray_tensor(images: np.ndarray, device) -> torch.Tensor:
     """
     gray_u8 = np.rint(to_gray(images)).astype(np.uint8)
     return torch.from_numpy(gray_u8).to(device).float()
+
+
+_DEVICE_CACHE: dict = {}
+
+
+def _cache_key(images: np.ndarray):
+    """Identity plus content: shape, dtype, data pointer and a CRC over a
+    ~64k-element stride sample, as ``sfm_tpu.io.images._cache_key`` (id
+    reuse after garbage collection or an in-place edit never aliases)."""
+    a = np.asarray(images)
+    flat = a.reshape(-1) if a.flags.c_contiguous else np.ascontiguousarray(a).reshape(-1)
+    sample = flat[:: max(1, flat.size // 65536)]
+    return (
+        id(images), a.shape, a.dtype.str, a.ctypes.data,
+        zlib.crc32(np.ascontiguousarray(sample).tobytes()),
+    )
+
+
+def device_gray(images: np.ndarray, device) -> torch.Tensor:
+    """``gray_tensor(images, device)``, computed once per process.
+
+    Keyed on the host array's identity and content (``_cache_key``) and the
+    device; an entry is evicted when the host array is garbage-collected.
+    Callers must not write into the returned tensor.
+    """
+    device = torch.device(device)
+    key = _cache_key(images) + (str(device),)
+    hit = _DEVICE_CACHE.get(key)
+    if hit is not None:
+        return hit
+    gray = gray_tensor(images, device)
+    _DEVICE_CACHE[key] = gray
+    try:
+        weakref.finalize(images, _DEVICE_CACHE.pop, key, None)
+    except TypeError:
+        pass  # not weak-referenceable: the content key still prevents aliasing
+    return gray

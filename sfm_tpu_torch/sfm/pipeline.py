@@ -25,7 +25,7 @@ from sfm_tpu_torch.geometry.triangulation import (
     triangulate_dlt,
 )
 from sfm_tpu_torch.io.calib import Calibration
-from sfm_tpu_torch.io.images import gray_tensor
+from sfm_tpu_torch.io.images import device_gray
 from sfm_tpu_torch.ops._launch import use_kernel
 from sfm_tpu_torch.sfm.ransac import ransac_fundamental
 from sfm_tpu_torch.sfm.tracks import TrackStore
@@ -177,7 +177,7 @@ def structure_from_motion(
     ib = torch.tensor([p[1] for p in pairs], dtype=torch.long, device=device)
 
     with timers.stage("features"):
-        gray = gray_tensor(images, device)
+        gray = device_gray(images, device)
         kernels = use_kernel(gray, config.runtime.kernels)
         fs = detect_and_describe(gray, config.features, kernels=kernels)
         if device.type == "cuda":

@@ -1,12 +1,15 @@
 """The CUDA kernels against their plain PyTorch versions, on the card.
 
-Phases 2-3 of chip_smoke.py at the main path's shapes: K1 (Harris) bit-equal
-response and corners on a rendered 48 x 480 x 640 stack; K2 (slab gather)
-within one bf16 ulp at integer centers and 8e-3 at 163,840 fractional
-centers, in-bounds masks equal.  Marked ``cuda``; each test skips where
-``torch.cuda.is_available()`` is False.  On the card:
+Phases 2-3 and 7 of chip_smoke.py at the main path's shapes: K1 (Harris)
+bit-equal response and corners on a rendered 48 x 480 x 640 stack; K2 (slab
+gather) within one bf16 ulp at integer centers and 8e-3 at 163,840
+fractional centers, in-bounds masks equal; K2 at the centres one ported
+expansion round produces on the card, plus NaN, +-inf and 1e10 centres,
+reading nothing outside the stack.  Marked ``cuda``; each test skips where
+``torch.cuda.is_available()`` is False.  On the card (tests/conftest.py
+imports jax, which the card's machine lacks):
 
-    python -m pytest tests/test_torch_kernels_cuda.py -q
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py -q
 """
 
 import importlib.util
@@ -59,3 +62,16 @@ def test_k2_within_bounds(smoke, stack):
     err = smoke.check_k2(stack.to(torch.bfloat16), smoke.k2_inputs(stack, corners))
     assert err["fractional"] <= smoke.K2_FRAC_ATOL
     assert sample_normalized_patches.launches == before + 2
+
+
+def test_k2_at_expansion_round_and_nonfinite_centres(smoke, stack):
+    from sfm_tpu_torch.ops.gather import sample_normalized_patches
+
+    images, calib = smoke.render_ring()
+    recon, _ = smoke.run_sfm(images, calib, kernels=True)
+    before = sample_normalized_patches.launches
+    out = smoke.check_k2_mvs_round(stack, calib, recon)
+    assert out["max_abs_err"] <= smoke.K2_FRAC_ATOL
+    assert out["samples"] > 100_000 and out["nonfinite_centres"] >= 8
+    assert out["round_accepted"] > 0
+    assert sample_normalized_patches.launches > before

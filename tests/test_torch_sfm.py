@@ -316,17 +316,61 @@ def test_cli_sfm_stage(tmp_path, capsys):
     pts, _ = read_ply(os.path.join(out, "sparse_points.ply"))
     assert pts.shape == (summary["sparse_tracks"], 3) and pts.shape[0] > 50
     assert np.percentile(synth.surface_distance(pts, spheres), 95) < 0.05
-    for extra in (["--stages", "sfm,ba"], ["--stages", "mvs"],
-                  ["--stages", "sfm", "--plot"]):
+    # Flags whose machinery is not ported exit 2 instead of running the
+    # default path; so do unknown stages and BA/MVS without a sparse stage.
+    for extra in (["--stages", "sfm", "--plot"], ["--refine_cameras"],
+                  ["--enable_outlier_filter"], ["--checkpoint_dir", out],
+                  ["--mesh_devices", "2"], ["--debug"],
+                  ["--profile_dir", out]):
         assert t_main(args + extra) == 2
         assert "not yet ported" in capsys.readouterr().err
+    assert t_main(args + ["--stages", "sfm,dense"]) == 2
+    assert "unknown stage" in capsys.readouterr().err
+    assert t_main(args + ["--stages", "ba,mvs"]) == 2
+    assert "no sparse reconstruction" in capsys.readouterr().err
     assert t_main(args + ["--stages", "sfm", "--device", "cpu",
                           "-par_p", str(tmp_path / "missing.txt")]) == 1
+
+
+def test_cli_default_stages_write_four_ply(tmp_path, capsys):
+    """The default --stages sfm,ba,mvs: the four PLY files of sfm_tpu's CLI
+    and its summary keys; the dense cloud lies on the sphere."""
+    pytest.importorskip("PIL")
+    ds = str(tmp_path / "ring")
+    _, par, spheres = synth.write_middlebury_dataset(
+        ds, centers=synth.ring_rig(12), w=200, h=150, image_type="png",
+        spheres=(((0.0, 0.0, 0.0), 1.0),), texture_freq_scale=1.0,
+    )
+    out = str(tmp_path / "out")
+    assert t_main(["-img_p", ds, "-par_p", par, "-t", "png", "--max_corners",
+                   "512", "--max_matches", "256", "--mvs_round_capacity", "2048",
+                   "--mvs_rounds", "8", "--out_dir", out, "--device", "cpu"]) == 0
+    summary = json.loads(
+        [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("{")][-1]
+    )
+    assert set(summary) == {
+        "sparse_tracks", "sparse_mean_reproj_px", "ba_final_cost",
+        "ba_rms_reproj_px", "mvs_seeds", "mvs_points", "timers_s",
+    }
+    assert set(summary["timers_s"]) == {"sfm", "ba", "mvs"}
+    assert summary["ba_rms_reproj_px"] < 0.3
+    sizes = {"sparse_points.ply": summary["sparse_tracks"],
+             "sparse_points_ba.ply": summary["sparse_tracks"],
+             "initial_patches.ply": summary["mvs_seeds"],
+             "all_patches.ply": summary["mvs_points"]}
+    for name, n in sizes.items():
+        pts, cols = read_ply(os.path.join(out, name))
+        assert pts.shape == (n, 3), name
+        assert (cols is None) == name.startswith("sparse"), name
+    dense, _ = read_ply(os.path.join(out, "all_patches.ply"))
+    assert dense.shape[0] > 1000
+    assert np.median(synth.surface_distance(dense, spheres)) < 0.02
 
 
 def test_import_leaves_jax_out():
     code = (
         "import sys, sfm_tpu_torch, sfm_tpu_torch.cli, sfm_tpu_torch.sfm, "
+        "sfm_tpu_torch.ba, sfm_tpu_torch.mvs, sfm_tpu_torch.mvs.expand, "
         "sfm_tpu_torch.ops, sfm_tpu_torch.utils.synth, sfm_tpu_torch.utils.build; "
         "assert 'jax' not in sys.modules, 'jax imported'; "
         "assert not any(m == 'sfm_tpu' or m.startswith('sfm_tpu.') for m in sys.modules)"
