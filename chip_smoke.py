@@ -13,14 +13,21 @@ textured-sphere ring -- the SfM stage, points-only bundle adjustment and
 dense MVS at the CLI defaults, each as a library call with the launch
 counts read around it, then the CLI's default ``--stages sfm,ba,mvs`` --
 times the kernels and the stages (with a torch.profiler table of one MVS
-run), and prints as its last line
-``{"ok": true, "device": {...}}``.  Any failed check raises and the exit
+run).  Then the multi-device path: K2s (the sharded K2 wrapper) bit-equal
+to one K2 call on 4 virtual shards of the card, the three stages on that
+4-shard mesh held to the unsharded results (both also over 2 GPUs and
+over every GPU, and K1 and K2 on a second GPU while the first is current,
+where there are two or more: ``chiprun --chips 4 -- python3 chip_smoke.py``
+drives those branches), where K2s's time goes (host enqueue, device
+kernels), and the CLI with ``--mesh_devices 4``.  It prints as its last
+line ``{"ok": true, "device": {...}}``.  Any failed check raises and the exit
 code is nonzero.  Without CUDA it exits 1 and prints no result.  Imports
 nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -35,6 +42,7 @@ N_FRAMES, WIDTH, HEIGHT = 48, 640, 480       # the dinoRing shape
 WID = 5                                      # 11x11 descriptors
 MVS_SAMPLES = 32768 * 5                      # round_capacity x photo views
 K2_FRAC_ATOL = 8e-3
+SHARDS = 4                                   # virtual shards of one card
 
 
 def check(cond, msg):
@@ -156,6 +164,35 @@ def cuda_ms(fn, reps=20, batch=10):
     return statistics.median(times)
 
 
+def host_and_device(fn, calls=50):
+    """Where a call's time goes, per call: ``host_us`` to enqueue it (the
+    host loop alone, nothing waited for), ``with_device_us`` to the sync
+    after the loop, and under torch.profiler the device kernels it launches
+    and their summed device ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"host_us": (t1 - t0) / calls * 1e6,
+            "with_device_us": (t2 - t0) / calls * 1e6,
+            "launches": len(kern) / calls,
+            "device_ms": sum(e.time_range.elapsed_us() for e in kern) / 1e3 / calls}
+
+
 def sphere_bounds(world):
     import numpy as np
 
@@ -163,7 +200,7 @@ def sphere_bounds(world):
     return float(np.median(r)), float(np.percentile(r, 95))
 
 
-def run_sfm(images, calib, kernels):
+def run_sfm(images, calib, kernels, mesh=None):
     import torch
 
     from sfm_tpu_torch.config import PipelineConfig, RuntimeConfig
@@ -175,7 +212,7 @@ def run_sfm(images, calib, kernels):
     images = images.copy()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    recon = structure_from_motion(images, calib, cfg)
+    recon = structure_from_motion(images, calib, cfg, mesh=mesh)
     torch.cuda.synchronize()
     return recon, time.perf_counter() - t0
 
@@ -246,7 +283,7 @@ def check_k2_mvs_round(gray, calib, recon):
     return out
 
 
-def run_ba(recon):
+def run_ba(recon, mesh=None):
     import torch
 
     from sfm_tpu_torch.ba import bundle_adjust
@@ -255,12 +292,13 @@ def run_ba(recon):
     before = recon.rms_reprojection_error()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    recon, info = bundle_adjust(recon, BaConfig(dtype="float32"), device="cuda")
+    recon, info = bundle_adjust(recon, BaConfig(dtype="float32"), mesh=mesh,
+                                device="cuda")
     torch.cuda.synchronize()
     return recon, info, before, time.perf_counter() - t0
 
 
-def run_mvs(images, recon, kernels):
+def run_mvs(images, recon, kernels, mesh=None):
     import torch
 
     from sfm_tpu_torch.config import MvsConfig
@@ -269,7 +307,8 @@ def run_mvs(images, recon, kernels):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     dense = dense_reconstruction(images, recon.calib, recon, MvsConfig(),
-                                 scale=1.0, device="cuda", kernels=kernels)
+                                 scale=1.0, mesh=mesh, device="cuda",
+                                 kernels=kernels)
     torch.cuda.synchronize()
     return dense, time.perf_counter() - t0
 
@@ -307,6 +346,210 @@ def profile_mvs(images, recon, smi):
     return {"wall_s": wall, "busy_ms": busy_ms, "k2_ms": k2_ms}
 
 
+def check_second_gpu(gray, k2_in):
+    """K1 and K2 on cuda:1 while cuda:0 is current, against their plain
+    versions there (each wrapper launches on its tensor's device).  Returns
+    None, and logs the skip, below two GPUs."""
+    import torch
+
+    from sfm_tpu_torch.ops.gather import _sample_plain, sample_normalized_patches
+    from sfm_tpu_torch.ops.harris import _harris_math, harris_response
+
+    if torch.cuda.device_count() < 2:
+        log("K1/K2 on a second GPU: skipped (one GPU)")
+        return None
+    dev = torch.device("cuda", 1)
+    g1 = gray.to(dev)
+    (_, _), (img_f, ctr_f) = k2_in
+    img, ctr = img_f.to(dev), ctr_f.to(dev)
+    with torch.cuda.device(0):
+        resp = harris_response(g1, 0.04)
+        resp_plain = _harris_math(g1, 0.04)
+        desc, inb = sample_normalized_patches(g1.to(torch.bfloat16), img, ctr, WID)
+        plain = _sample_plain(g1.to(torch.bfloat16), img, ctr, WID)
+        torch.cuda.synchronize(dev)
+        check(torch.cuda.current_device() == 0, "current device moved")
+    check(resp.device == dev and torch.equal(resp, resp_plain),
+          "K1 on cuda:1 bit-equal to the plain version")
+    err = float((desc.float() - plain.float()).abs().max())
+    check(desc.device == dev and err <= K2_FRAC_ATOL, f"K2 on cuda:1: {err}")
+    log(f"K1/K2 on cuda:1 with cuda:0 current: K1 bit-equal, K2 max abs err "
+        f"{err:.3e}, in-bounds {int(inb.sum())}")
+    return {"k2_max_abs_err": err}
+
+
+def check_k2_sharded(gray_bf16, img_f, ctr_f):
+    """K2s against one K2 call (bit-equal) and against the plain version,
+    at the MVS round's 163,840 samples and at 163,843 (the pad path), on
+    SHARDS virtual shards of cuda:0 and, with two or more GPUs, over all of
+    them; one K2 launch per shard.  Times K2s on the virtual shards and
+    one K2 call at the round shape."""
+    import torch
+
+    from sfm_tpu_torch.ops.gather import (
+        _sample_plain,
+        sample_normalized_patches,
+        sample_normalized_patches_sharded,
+    )
+    from sfm_tpu_torch.parallel import DataMesh, data_mesh
+
+    n, h, w = gray_bf16.shape
+    dev = gray_bf16.device
+    g = torch.Generator(device="cpu").manual_seed(1)
+    extra_img = torch.randint(0, n, (3,), generator=g, dtype=torch.int32)
+    extra_ctr = torch.rand((3, 2), generator=g) * torch.tensor([w - 1.0, h - 1.0])
+    ragged = (torch.cat([img_f, extra_img.to(dev)]),
+              torch.cat([ctr_f, extra_ctr.to(dev)]).contiguous())
+    meshes = [DataMesh([dev] * SHARDS)]
+    if torch.cuda.device_count() >= 2:
+        meshes.append(data_mesh())
+    else:
+        log("K2s over every GPU: skipped (one GPU)")
+    err = err_plain = 0.0
+    for mesh in meshes:
+        reps = mesh.replicate(gray_bf16)
+        for name, (img, ctr) in (("round", (img_f, ctr_f)), ("ragged", ragged)):
+            want, inb_want = sample_normalized_patches(gray_bf16, img, ctr, WID)
+            plain = _sample_plain(gray_bf16, img, ctr, WID)
+            before = sample_normalized_patches_sharded.launches
+            got, inb = sample_normalized_patches_sharded(reps, img, ctr, WID, mesh)
+            launched = sample_normalized_patches_sharded.launches - before
+            for d in dict.fromkeys(mesh.devices):
+                torch.cuda.synchronize(d)
+            check(launched == mesh.size, f"K2s launched {launched} times on "
+                  f"{mesh.size} shards")
+            check(torch.equal(got, want) and torch.equal(inb, inb_want),
+                  f"K2s ({name}, {mesh}) bit-equal to one K2 call")
+            e = float((got.float() - want.float()).abs().max())
+            ep = float((got.float() - plain.float()).abs().max())
+            check(ep <= K2_FRAC_ATOL, f"K2s against the plain version: {ep}")
+            err, err_plain = max(err, e), max(err_plain, ep)
+            log(f"K2s on {mesh}: {img.numel()} samples, bit-equal to one K2 "
+                f"call, {launched} launches, max abs err to the plain version "
+                f"{ep:.3e}")
+    mesh = meshes[0]
+    reps = mesh.replicate(gray_bf16)
+    t = {
+        "ms": cuda_ms(lambda: sample_normalized_patches_sharded(
+            reps, img_f, ctr_f, WID, mesh)),
+        "single_call_ms": cuda_ms(lambda: sample_normalized_patches(
+            gray_bf16, img_f, ctr_f, WID)),
+    }
+    log(f"K2s at {img_f.numel()} samples on {SHARDS} virtual shards vs one K2 "
+        f"call, ms: " + json.dumps({k: round(v, 4) for k, v in t.items()}))
+    for what, fn in (
+            ("one K2 call", lambda: sample_normalized_patches(
+                gray_bf16, img_f, ctr_f, WID)),
+            (f"K2s on {SHARDS} virtual shards",
+             lambda: sample_normalized_patches_sharded(
+                 reps, img_f, ctr_f, WID, mesh))):
+        log(f"attribution, {what} at {img_f.numel()} samples: "
+            + json.dumps(host_and_device(fn)))
+    return {"max_abs_err": err, "max_abs_err_plain": err_plain,
+            "gpus": len(dict.fromkeys(meshes[-1].devices)), **t}
+
+
+def sparse_copy(r):
+    """A SparseReconstruction with its own copy of the world points (BA
+    refines them in place)."""
+    from sfm_tpu_torch.sfm.pipeline import SparseReconstruction
+
+    return SparseReconstruction(calib=r.calib, world=r.world.copy(),
+                                track_offsets=r.track_offsets,
+                                track_obs=r.track_obs)
+
+
+def run_stages_on_mesh(mesh, images, calib, unsharded):
+    """SfM, BA and MVS through the library over ``mesh``, each stage on the
+    input its unsharded phase (4, 8, 9) had and held to that phase's result
+    (``unsharded``); one warm-up run, then the timed run with the launch
+    counts set to 0 just before it.  Logs every difference."""
+    import numpy as np
+    import torch
+
+    from sfm_tpu_torch.ops.gather import (
+        sample_normalized_patches,
+        sample_normalized_patches_sharded,
+    )
+    from sfm_tpu_torch.ops.harris import harris_response
+
+    counted = (harris_response, sample_normalized_patches,
+               sample_normalized_patches_sharded)
+
+    def zero_counts():
+        for fn in counted:
+            fn.launches = 0
+
+    def counts():
+        return {fn.__name__: fn.launches for fn in counted}
+
+    n = mesh.size
+    sparse4, dense = unsharded["sparse"], unsharded["dense"]
+    info, rms_after = unsharded["ba_info"], unsharded["ba_rms"]
+    run_sfm(images, calib, kernels=True, mesh=mesh)
+    zero_counts()
+    srecon, s_wall = run_sfm(images, calib, kernels=True, mesh=mesh)
+    l_sfm = counts()
+    same_obs = (srecon.num_observations == sparse4.num_observations
+                and np.array_equal(srecon.track_obs, sparse4.track_obs))
+    world_diff = (float(np.abs(srecon.world - sparse4.world).max())
+                  if same_obs else float("nan"))
+    mv = srecon.metrics.values
+    med, p95 = sphere_bounds(srecon.world)
+    log(f"SfM on {mesh}: {srecon.num_tracks} tracks (unsharded "
+        f"{sparse4.num_tracks}), track_obs equal {same_obs}, world max diff "
+        f"{world_diff:.3e}, pair reproj {mv['mean_pair_reprojection_error_px']:.4f} "
+        f"px, sphere median {med:.2e} p95 {p95:.2e}; wall {s_wall:.4f} s "
+        f"(unsharded {unsharded['sfm_s']:.4f} s); launches {l_sfm}; timers "
+        + json.dumps({k: round(v, 4) for k, v in srecon.timers.times.items()}))
+    check(l_sfm["harris_response"] == n and l_sfm["sample_normalized_patches"] == n,
+          f"SfM on {n} shards: one K1 and one K2 launch per shard")
+    check(abs(srecon.num_tracks - sparse4.num_tracks) <= 0.005 * sparse4.num_tracks,
+          "sharded SfM track count within 0.5 %")
+    check(srecon.num_tracks > 500 and mv["mean_pair_reprojection_error_px"] < 0.3
+          and med < 0.01 and p95 < 0.05, "sharded SfM gates")
+
+    run_ba(sparse_copy(sparse4), mesh=mesh)
+    zero_counts()
+    brecon, binfo, _, b_wall = run_ba(sparse_copy(sparse4), mesh=mesh)
+    b_rms = brecon.rms_reprojection_error()
+    log(f"BA on {mesh}: {binfo['iterations']} iterations (unsharded "
+        f"{info['iterations']}), rms after {b_rms:.6f} px (unsharded "
+        f"{rms_after:.6f}, diff {abs(b_rms - rms_after):.2e}), final cost "
+        f"{binfo['final_cost']:.6g} (unsharded {info['final_cost']:.6g}); wall "
+        f"{b_wall:.4f} s (unsharded {unsharded['ba_s']:.4f} s); launches "
+        f"{counts()}")
+    check(binfo["iterations"] == info["iterations"], "sharded BA iterations")
+    check(abs(b_rms - rms_after) <= 1e-4, "sharded BA rms within 1e-4 px")
+
+    run_mvs(images, unsharded["ba_recon"], kernels=None, mesh=mesh)
+    zero_counts()
+    sdense, sm_wall = run_mvs(images, unsharded["ba_recon"], kernels=None,
+                              mesh=mesh)
+    l_mvs = counts()
+    rounds = sdense.metrics.values["mvs_rounds"]
+    med, p90, outward = dense_bounds(sdense.points, sdense.normals)
+    log(f"MVS on {mesh}: {sdense.num_seeds} seeds (unsharded {dense.num_seeds}) "
+        f"-> {sdense.num_points} points (unsharded {dense.num_points}, diff "
+        f"{sdense.num_points - dense.num_points:+d}) in {rounds} rounds; "
+        f"|c|-1 median {med:.2e} p90 {p90:.2e}; n.c > 0 share {outward:.4f}; "
+        f"wall {sm_wall:.4f} s (unsharded {unsharded['mvs_s']:.4f} s); "
+        f"launches {l_mvs}; timers "
+        + json.dumps({k: round(v, 4) for k, v in sdense.timers.times.items()}))
+    check(sdense.num_seeds == dense.num_seeds, "sharded MVS seeds equal")
+    check(abs(sdense.num_points - dense.num_points) <= 0.01 * dense.num_points,
+          "sharded MVS dense count within 1 %")
+    check(med < 0.02 and p90 < 0.06 and outward > 0.9, "sharded MVS sphere bounds")
+    # Every sweep goes through K2s's launch step; seeding's is one shard.
+    check(l_mvs["sample_normalized_patches_sharded"] == 1 + n * rounds
+          and l_mvs["sample_normalized_patches"] == 1 + n * rounds,
+          "K2 once per shard per expansion sweep (plus the unsharded seeding)")
+    check(l_mvs["harris_response"] == 0, "MVS launched K1")
+    return {"sfm_s": s_wall, "ba_s": b_wall, "mvs_s": sm_wall,
+            "sfm_pair_geometry_s": srecon.timers.times["pair_geometry"],
+            "mvs_rounds": rounds, "sfm_launches": l_sfm, "mvs_launches": l_mvs}
+
+
 def main() -> int:
     try:
         import torch
@@ -324,7 +567,11 @@ def main() -> int:
         print(f"error: sfm_tpu_torch not importable next to chip_smoke.py: {e}",
               file=sys.stderr)
         return 1
-    from sfm_tpu_torch.ops.gather import _sample_plain, sample_normalized_patches
+    from sfm_tpu_torch.ops.gather import (
+        _sample_plain,
+        sample_normalized_patches,
+        sample_normalized_patches_sharded,
+    )
     from sfm_tpu_torch.ops.harris import _harris_math, harris_response
     from sfm_tpu_torch.utils import build
 
@@ -433,11 +680,8 @@ def main() -> int:
     k2_round = check_k2_mvs_round(gray, calib, recon)
 
     # --- 8. points-only bundle adjustment on the phase-4 sparse result ------
-    from sfm_tpu_torch.sfm.pipeline import SparseReconstruction
-
-    warm = SparseReconstruction(calib=recon.calib, world=recon.world.copy(),
-                                track_offsets=recon.track_offsets,
-                                track_obs=recon.track_obs)
+    sparse4 = sparse_copy(recon)  # phase 12's BA input
+    warm = sparse_copy(recon)
     _, _, _, ba_cold = run_ba(warm)  # warm-up: the first BA call in the process
     harris_response.launches = 0
     sample_normalized_patches.launches = 0
@@ -460,9 +704,12 @@ def main() -> int:
     first, first_wall = run_mvs(images, recon, kernels=None)  # warm
     harris_response.launches = 0
     sample_normalized_patches.launches = 0
+    sample_normalized_patches_sharded.launches = 0
     dense, mvs_wall = run_mvs(images, recon, kernels=None)
     launches_mvs = sample_normalized_patches.launches
     check(harris_response.launches == 0, "MVS launched K1")
+    check(sample_normalized_patches_sharded.launches == launches_mvs,
+          "an MVS sweep bypassed K2s's launch step (a mesh of one shard)")
     log(f"launches in the timed MVS run: sample_normalized_patches {launches_mvs}")
     check(launches_mvs > 0, "sample_normalized_patches not launched on the MVS path")
     mv = dense.metrics.values
@@ -488,8 +735,10 @@ def main() -> int:
     prof = profile_mvs(images, recon, smi)
 
     # --- 10. the CLI, default stages sfm,ba,mvs, on the written dataset -----
+    # (phase 13 runs the CLI on the same dataset)
+    tmp_cli = tempfile.TemporaryDirectory()
     if have_pil:
-        with tempfile.TemporaryDirectory() as tmp:
+        with contextlib.nullcontext(tmp_cli.name) as tmp:
             ds = os.path.join(tmp, "ring")
             _, par, _ = synth.write_middlebury_dataset(
                 ds, centers=synth.ring_rig(N_FRAMES), w=WIDTH, h=HEIGHT,
@@ -528,6 +777,69 @@ def main() -> int:
         "dense_points": dense.num_points, "dense_points_plain": plain.num_points,
     }))
 
+    # --- 11. K2s, and K1/K2 on a second GPU --------------------------------
+    k2s = check_k2_sharded(gray_bf16, img_f, ctr_f)
+    check_second_gpu(gray, k2_in)
+
+    # --- 12. SfM, BA and MVS on a 4-shard mesh of the card ----------------
+    from sfm_tpu_torch.parallel import DataMesh, data_mesh
+
+    unsharded = {"sparse": sparse4, "ba_info": info, "ba_rms": rms_after,
+                 "ba_recon": recon, "dense": dense, "sfm_s": wall,
+                 "ba_s": ba_wall, "mvs_s": mvs_wall}
+    sh = run_stages_on_mesh(DataMesh([torch.device("cuda", 0)] * SHARDS),
+                            images, calib, unsharded)
+    n_gpu = torch.cuda.device_count()
+    walls = {f"{SHARDS} virtual shards": sh}
+    for k in sorted({2, n_gpu}) if n_gpu >= 2 else ():
+        walls[f"{k} GPUs"] = run_stages_on_mesh(data_mesh(num_devices=k), images,
+                                                calib, unsharded)
+    if n_gpu < 2:
+        log("SfM, BA and MVS over 2 or more GPUs: skipped (one GPU)")
+
+    # --- 13. the CLI with --mesh_devices 4 on phase 10's dataset -------------
+    if have_pil:
+        from sfm_tpu_torch.cli import run_mesh
+        from sfm_tpu_torch.config import PipelineConfig, RuntimeConfig
+
+        cli_mesh = run_mesh(PipelineConfig(
+            runtime=RuntimeConfig(mesh_shape=SHARDS, device="cuda")))
+        out = os.path.join(tmp_cli.name, "out_mesh")
+        t0 = time.perf_counter()
+        rc = cli_main(["-img_p", ds, "-par_p", par, "-t", "png",
+                       "--mesh_devices", str(SHARDS), "--out_dir", out])
+        mesh_cli_wall = time.perf_counter() - t0
+        check(rc == 0, f"CLI --mesh_devices exit code {rc}")
+        clouds = {name: read_ply(os.path.join(out, name + ".ply"))[0]
+                  for name in ("sparse_points", "sparse_points_ba",
+                               "initial_patches", "all_patches")}
+        med_c, p95_c = sphere_bounds(clouds["sparse_points"].astype("float64"))
+        dpts = clouds["all_patches"].astype("float64")
+        dmed, dp90, _ = dense_bounds(dpts, dpts)
+        log(f"CLI --mesh_devices {SHARDS} (a mesh of {cli_mesh.size} device(s) "
+            f"here) in {mesh_cli_wall:.2f} s: "
+            + ", ".join(f"{k} {v.shape[0]}" for k, v in clouds.items())
+            + f"; sparse median {med_c:.2e} p95 {p95_c:.2e}; dense median "
+            f"{dmed:.2e} p90 {dp90:.2e}")
+        check(clouds["sparse_points"].shape[0] > 500 and med_c < 0.01
+              and p95_c < 0.05, "CLI --mesh_devices sparse cloud on the sphere")
+        check(clouds["sparse_points_ba"].shape == clouds["sparse_points"].shape,
+              "CLI --mesh_devices BA cloud")
+        check(dpts.shape[0] > 10000 and dmed < 0.02 and dp90 < 0.06,
+              "CLI --mesh_devices dense cloud on the sphere")
+    tmp_cli.cleanup()
+    log(f"stage walls at {SHARDS} virtual shards on {smi}: " + json.dumps({
+        "sfm_s": sh["sfm_s"], "ba_s": sh["ba_s"], "mvs_s": sh["mvs_s"],
+        "sfm_unsharded_s": wall, "ba_unsharded_s": ba_wall,
+        "mvs_unsharded_s": mvs_wall, "mvs_rounds": sh["mvs_rounds"],
+        "k2_launches_sfm": sh["sfm_launches"]["sample_normalized_patches"],
+        "k2_launches_mvs": sh["mvs_launches"]["sample_normalized_patches"],
+        "k2s_launches_mvs": sh["mvs_launches"]["sample_normalized_patches_sharded"],
+    }))
+    log(f"stage walls by mesh on {smi}: " + json.dumps({
+        name: {k: w[k] for k in ("sfm_s", "ba_s", "mvs_s", "sfm_pair_geometry_s")}
+        for name, w in walls.items()}))
+
     kernels = [
         {"name": "harris_response", "route": "cuda",
          "source": "sfm_tpu_torch/csrc/harris.cu",
@@ -546,6 +858,15 @@ def main() -> int:
          "launches_mvs": launches_mvs,
          "mvs_share": prof["k2_ms"] / 1e3 / prof["wall_s"],
          "max_abs_err_mvs_round": k2_round["max_abs_err"]},
+        {"name": "sample_normalized_patches_sharded", "route": "cuda",
+         "source": "sfm_tpu_torch/csrc/gather.cu",
+         "replaces": "sfm_tpu/ops/gather.py:264",
+         "shards": SHARDS,
+         "launches": sh["mvs_launches"]["sample_normalized_patches_sharded"],
+         "max_abs_err": k2s["max_abs_err"],
+         "max_abs_err_plain": k2s["max_abs_err_plain"],
+         "ms": k2s["ms"], "single_call_ms": k2s["single_call_ms"],
+         "plain_ms": t["k2_frac_plain"], "samples": img_f.numel()},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,11 +13,13 @@ easy to find:
 - ``sfm_tpu_torch.sfm``       — RANSAC, track store, sparse pipeline
 - ``sfm_tpu_torch.ba``        — points-only Levenberg-Marquardt bundle adjustment
 - ``sfm_tpu_torch.mvs``       — seeding, photo-consistency, expansion rounds
+- ``sfm_tpu_torch.parallel``  — the device mesh (one process driving several
+  devices) and process-group set-up
 - ``sfm_tpu_torch.utils``     — metrics, timing, synthetic scenes, builds
 
-The main path (sfm, ba, mvs) is ported; joint BA, the outlier filter,
-checkpoints and multi-device runs live in ``sfm_tpu`` only so far.  This
-package never imports jax.
+The main path (sfm, ba, mvs) is ported, single-device and over a mesh; joint
+BA, the outlier filter and checkpoints live in ``sfm_tpu`` only so far.
+This package never imports jax.
 """
 
 __version__ = "0.1.0"

@@ -30,19 +30,16 @@ def bundle_adjust(
     """Refine a SparseReconstruction in place on ``device``; returns
     (recon, info dict).
 
-    ``refine_cameras=True`` (joint BA) and ``mesh`` (sharded BA) are not
-    ported yet and raise NotImplementedError.
+    With ``mesh`` (a ``parallel.DataMesh``) the observations are split over
+    its shards (``solve_lm(mesh=)``) and the solve runs on ``mesh.lead``
+    (``device`` is not read).  ``refine_cameras=True`` (joint BA) is not
+    ported yet and raises NotImplementedError.
     """
     if config.refine_cameras:
         raise NotImplementedError(_JOINT_BA)
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded BA (mesh) is not ported to sfm_tpu_torch yet "
-            "(ROADMAP queue 1 item 14)"
-        )
     timers = StageTimer()
     dtype = torch.float64 if config.dtype == "float64" else torch.float32
-    device = torch.device(device)
+    device = mesh.lead if mesh is not None else torch.device(device)
     with timers.stage("assemble"):
         problem = build_problem(
             recon.calib, recon.world, recon.track_offsets, recon.track_obs,
@@ -57,6 +54,7 @@ def bundle_adjust(
             lambda_up=config.lambda_up,
             lambda_down=config.lambda_down,
             optimize_cameras=False,
+            mesh=mesh,
         )
         points = points.cpu().numpy()
         final_cost = float(cost)
@@ -80,4 +78,6 @@ def bundle_adjust(
     recon.metrics.record("ba_final_cost", info["final_cost"])
     recon.metrics.record("ba_iterations", info["iterations"])
     recon.metrics.record("ba_rms_reproj_after_px", info["rms_reproj_refined_px"])
+    if mesh is not None:
+        recon.metrics.record("ba_mesh_devices", mesh.size)
     return recon, info

@@ -5,9 +5,12 @@ writes ``sparse_points.ply``, ``ba`` (points-only bundle adjustment)
 ``sparse_points_ba.ply``, ``mvs`` ``initial_patches.ply`` and
 ``all_patches.ply``, and the summary JSON has the same keys.  Flags whose
 machinery is not ported yet (``NOT_PORTED``) exit with code 2.
+``--mesh_devices N`` (N > 1) runs every stage over one mesh of up to N
+devices of ``--device``'s kind (``run_mesh``); N <= 1 is a plain
+single-device run, as in ``sfm_tpu``.
 
 Run: ``python -m sfm_tpu_torch.cli -img_p DIR -par_p DIR/x_par.txt -t png
-[--stages sfm,ba,mvs] [--device cuda]``.
+[--stages sfm,ba,mvs] [--device cuda] [--mesh_devices N]``.
 """
 
 from __future__ import annotations
@@ -19,9 +22,9 @@ import sys
 
 STAGES = ("sfm", "ba", "mvs")
 # Flags of sfm_tpu/cli.py whose machinery is not ported yet (ROADMAP queue 1
-# items 10-14): each exits 2 instead of running the default path.
+# items 10-13): each exits 2 instead of running the default path.
 NOT_PORTED = ("refine_cameras", "enable_outlier_filter", "checkpoint_dir",
-              "mesh_devices", "plot", "debug", "profile_dir")
+              "plot", "debug", "profile_dir")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -123,6 +126,27 @@ def config_from_args(args):
     )
 
 
+def run_mesh(config):
+    """The mesh the stages run over: None unless ``mesh_shape`` > 1 (as
+    ``sfm_tpu/cli.py``), else up to ``mesh_shape`` devices of the run's
+    device kind -- for CUDA the visible GPUs from ``--device``'s index on
+    (``cuda`` starts at 0), for the CPU its one device."""
+    n = config.runtime.mesh_shape
+    if not n or n <= 1:
+        return None
+    import torch
+
+    from sfm_tpu_torch.parallel import data_mesh
+
+    device = torch.device(config.runtime.device)
+    if device.type == "cuda":
+        devices = [torch.device("cuda", i) for i in
+                   range(device.index or 0, torch.cuda.device_count())]
+    else:
+        devices = [device]
+    return data_mesh(num_devices=n, devices=devices)
+
+
 def main(argv=None) -> int:
     """CLI entry point; bad input and pipeline errors exit 1 with a message,
     an unknown stage or a flag that is not ported exits 2."""
@@ -147,6 +171,7 @@ def _main(argv=None) -> int:
             return 2
     config = config_from_args(args)
     device = config.runtime.device
+    mesh = run_mesh(config)
     os.makedirs(args.out_dir, exist_ok=True)
 
     from sfm_tpu_torch.io import load_images, read_pars
@@ -168,7 +193,7 @@ def _main(argv=None) -> int:
         from sfm_tpu_torch.sfm import structure_from_motion
 
         with timers.stage("sfm"):
-            recon = structure_from_motion(images, calib, config)
+            recon = structure_from_motion(images, calib, config, mesh=mesh)
         mean_reproj = recon.mean_reprojection_error()
         print(f"sparse: {recon.num_tracks} tracks, "
               f"{recon.num_observations} observations, "
@@ -189,7 +214,8 @@ def _main(argv=None) -> int:
         from sfm_tpu_torch.ba import bundle_adjust
 
         with timers.stage("ba"):
-            recon, info = bundle_adjust(recon, config.ba, device=device)
+            recon, info = bundle_adjust(recon, config.ba, mesh=mesh,
+                                        device=device)
         ba_rms = recon.rms_reprojection_error()
         print(f"ba: cost {info['final_cost']:.4g} after {info['iterations']} "
               f"iterations; rms reproj {ba_rms:.3f}px")
@@ -203,7 +229,7 @@ def _main(argv=None) -> int:
         with timers.stage("mvs"):
             dense = dense_reconstruction(
                 images, recon.calib, recon, config.mvs, scale=args.scale,
-                device=device, kernels=config.runtime.kernels,
+                mesh=mesh, device=device, kernels=config.runtime.kernels,
             )
         print(f"mvs: {dense.num_seeds} seeds -> {dense.num_points} points "
               f"in {dense.metrics.values['mvs_rounds']} rounds")

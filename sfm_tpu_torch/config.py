@@ -140,6 +140,9 @@ class RuntimeConfig:
     the hand-written CUDA kernels: None follows the device (on for CUDA, off
     for the CPU); True on a CPU device is an error; False on CUDA runs the
     plain PyTorch versions on the card (for stage-level comparison).
+    ``mesh_shape`` is the CLI's ``--mesh_devices``: above 1, each stage runs
+    over a mesh of that many devices (``cli.run_mesh``); the library
+    functions take the mesh itself (``mesh=``).
     """
 
     mesh_shape: Optional[int] = None

@@ -11,10 +11,14 @@ cells.  The same deliberate fixes over the reference as the JAX package:
 (i, j) neighbour cells, each view projected with its own camera, and an
 accepted patch also occupies its target cell in its reference image.
 
-The JAX package's ``rounds_per_call`` chunking (several rounds in one
-device program, to amortise a remote link's fetch) and its mesh sharding
-hooks have no counterpart: this is one round per call, the chunked output
-being identical.
+With a mesh (``parallel.DataMesh``) the compacted candidate batch is split
+over the shards for photo-consistency (projection, view gate, K2 sweep,
+NCC), as the JAX package constrains it to shard along its mesh; candidate
+enumeration, compaction, geometry, the cell claims and the occupancy stay
+on the lead device.  The JAX package's ``rounds_per_call`` chunking
+(several rounds in one device program, to amortise a remote link's fetch)
+has no counterpart: this is one round per call, the chunked output being
+identical.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from sfm_tpu_torch.mvs.photoconsistency import (
     pack_patch_payload,
     photo_consistency,
 )
+from sfm_tpu_torch.parallel.mesh import DataMesh
 
 _OFFSETS = ((-1, -1), (-1, 1), (1, -1), (1, 1))
 
@@ -66,17 +71,24 @@ def expansion_round(
     round_capacity: int,
     scale: float,
     kernels=None,
+    mesh=None,
 ):
     """One expansion round over the frontier.
 
     Frontier tensors: f_c (F,3), f_n (F,3), f_vis (F,N), f_proj (F,N,2),
-    f_valid (F,); gray (N,H,W) bf16.  Returns (accepted dict of capacity
+    f_valid (F,); gray (N,H,W) bf16.  ``mesh`` defaults to a mesh of
+    ``f_c``'s one device; gray, K, R and t may be the per-shard lists of
+    ``mesh.replicate`` (entry 0 on the lead device, where every other
+    tensor lies).  Returns (accepted dict of capacity
     ``round_capacity`` — the next frontier, masked by 'valid' —, new
     occupancy, packed (C+1, 11) float32: rows 0..C-1 per
     ``photoconsistency.pack_patch_payload``, row C the round's counters
     [n_candidates, hits_dropped, scored, ray+finite, +geometry, +NCC
     views, accepted]).
     """
+    mesh = mesh or DataMesh([f_c.device])
+    shards = [mesh.replicate(x) for x in (gray, K, R, t)]
+    gray, K, R, t = (x[0] for x in shards)
     dev = f_c.device
     n_img = gray.shape[0]
     F = f_c.shape[0]
@@ -145,13 +157,14 @@ def expansion_round(
     dist = _norm(dvec)
     n_new = dvec / torch.clamp_min(dist[:, None], 1e-12)
 
-    # --- Photo-consistency for the whole batch (K2 on CUDA).  A candidate
-    # whose ray is parallel to its parent plane has a non-finite c_new and
-    # projections; its samples are out of bounds (masked), and K2 clamps
-    # the window origin in float, so the read stays inside the stack.
+    # --- Photo-consistency for the whole batch (K2 on CUDA; split over
+    # the shards under a mesh).  A candidate whose ray is parallel to its
+    # parent plane has a non-finite c_new and projections; its samples are
+    # out of bounds (masked), and K2 clamps the window origin in float, so
+    # the read stays inside the stack.
     vis, proj, score, cnt = photo_consistency(
-        gray, K, R, t, c_new, img, config.min_ncc_expand, config.patch_wid,
-        photo_views, kernels=kernels,
+        *shards, c_new, img, config.min_ncc_expand,
+        config.patch_wid, photo_views, kernels=kernels, mesh=mesh,
     )
 
     # --- Acceptance (reference rule). ---

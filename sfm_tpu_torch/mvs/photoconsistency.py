@@ -12,6 +12,10 @@ The sampling sweep is kernel K2 (ops/gather.py: ``sample_normalized_patches``
 on CUDA tensors; its plain version on CPU tensors, through the same
 wrapper).  ``kernels=False`` runs the plain version on any device, a
 measurement switch.  Descriptors are bf16, as in the JAX package.
+Every sweep goes through K2s's launch step (``ops.gather.sample_shards``):
+``photo_consistency(mesh=...)`` splits the candidates over a mesh's shards,
+as the JAX package's mesh path does, and a call without a mesh is a mesh of
+one shard.
 """
 
 from __future__ import annotations
@@ -20,8 +24,9 @@ import numpy as np
 import torch
 
 from sfm_tpu_torch.geometry.projection import project_pinhole
-from sfm_tpu_torch.ops.gather import _sample_plain, sample_normalized_patches
+from sfm_tpu_torch.ops.gather import _sample_plain, sample_shards
 from sfm_tpu_torch.ops.ncc import _inbounds
+from sfm_tpu_torch.parallel.mesh import DataMesh
 
 
 def pack_patch_payload(c, n, score, ref_pix, ref_idx, valid):
@@ -66,22 +71,28 @@ def _top_k(x, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _sweep(gray, img_idx, pix, wid: int, kernels):
-    """Normalized descriptors (..., D) bf16 and in-bounds (...,) for samples
-    (img_idx (...,), pix (..., 2)).
+def _sweep(grays, imgs, pixs, wid: int, kernels):
+    """Per shard, normalized descriptors (..., D) bf16 and in-bounds (...,)
+    for shard i's samples (``imgs[i]`` (...,), ``pixs[i]`` (..., 2))
+    against its replica ``grays[i]`` of the stack, on that shard's device.
 
-    K2's wrapper raises for a non-contiguous CUDA tensor, and the ungated
-    sweep's image index is a broadcast view, so both inputs are made
-    contiguous here.  No fallback: a failed build or launch raises.
+    With kernels on this is K2s's launch step (``ops.gather.sample_shards``:
+    one K2 launch per shard on a CUDA device).  K2's wrapper raises for a
+    non-contiguous CUDA tensor, and the ungated sweep's image index is a
+    broadcast view, so both inputs are made contiguous here.  No fallback:
+    a failed build or launch raises.
     """
-    img_idx = img_idx.to(torch.int32).contiguous()
-    pix = pix.to(torch.float32).contiguous()
+    imgs = [i.to(torch.int32).contiguous() for i in imgs]
+    pixs = [p.to(torch.float32).contiguous() for p in pixs]
     if kernels is not False:
-        return sample_normalized_patches(gray, img_idx, pix, wid)
-    h, w = gray.shape[1], gray.shape[2]
-    desc = _sample_plain(gray, img_idx.reshape(-1), pix.reshape(-1, 2), wid)
-    inb = _inbounds(pix[..., 0], pix[..., 1], h, w, wid)
-    return desc.reshape(*img_idx.shape, -1), inb
+        return sample_shards(grays, imgs, pixs, wid)
+    out = []
+    for gray, img, pix in zip(grays, imgs, pixs):
+        h, w = gray.shape[1], gray.shape[2]
+        desc = _sample_plain(gray, img.reshape(-1), pix.reshape(-1, 2), wid)
+        inb = _inbounds(pix[..., 0], pix[..., 1], h, w, wid)
+        out.append((desc.reshape(*img.shape, -1), inb))
+    return out
 
 
 def _ncc(desc, ref_desc, ncc_scale: float):
@@ -104,12 +115,21 @@ def photo_consistency(
     wid: int = 5,
     max_views: int = 0,
     kernels=None,
+    mesh=None,
 ):
     """Score M candidates against all N views.
 
-    ``0 < max_views < N`` takes the geometric view gate
-    (``_photo_consistency_gated``); otherwise every view is scored, the
-    reference's semantics.
+    ``0 < max_views < N`` takes the geometric view gate (``_gated_samples``:
+    the sweep runs over M x max_views samples instead of M x N); otherwise
+    every view is scored, the reference's semantics.
+
+    ``mesh`` (a ``parallel.DataMesh``; by default a mesh of ``centers``'s
+    one device) splits the candidates over its shards: projection, view
+    gate, K2 sweep (K2s's launch step) and NCC run per shard on the shard's
+    device, and the results are gathered on the lead device, where
+    ``centers`` and ``ref_idx`` lie.  ``gray``, K, R and t may be the
+    per-shard lists of ``mesh.replicate``.  Each candidate is scored on its
+    own, so the result is the same whatever the mesh.
 
     Returns:
       vis: (M, N) bool — view passes the NCC threshold (False at the ref view);
@@ -117,28 +137,69 @@ def photo_consistency(
       score_mean: (M,) mean NCC over visible views (0 if none);
       vis_count: (M,) int32 number of visible (non-reference) views.
     """
-    if gray.dtype != torch.bfloat16:
-        gray = gray.to(torch.bfloat16)
-    n_img = gray.shape[0]
-    if 0 < max_views < n_img:
-        return _photo_consistency_gated(
-            gray, K, R, t, centers, ref_idx, min_ncc, wid, max_views, kernels,
-        )
+    mesh = mesh or DataMesh([centers.device])
+    grays, Ks, Rs, ts = (mesh.replicate(x) for x in (gray, K, R, t))
+    grays = [g.to(torch.bfloat16) for g in grays]
+    cs, refs = mesh.split(centers), mesh.split(ref_idx)
+    h, w = grays[0].shape[1], grays[0].shape[2]
+    samples = [_view_samples(*args, h, w, wid, max_views)
+               for args in zip(Ks, Rs, ts, cs, refs)]
+    swept = _sweep(grays, [s[1] for s in samples], [s[2] for s in samples],
+                   wid, kernels)
+    outs = [
+        _score(d, b, s, ref, min_ncc, wid)
+        for (d, b), s, ref in zip(swept, samples, refs)
+    ]
     m = centers.shape[0]
-    side2 = (2 * wid + 1) ** 2
-    ncc_scale = side2 / (side2 - 1.0)
-    ref = ref_idx.long()
-    rows = torch.arange(m, device=centers.device)
+    return tuple(mesh.gather(list(x), m) for x in zip(*outs))
 
+
+def _view_samples(K, R, t, centers, ref_idx, h_img: int, w_img: int,
+                  wid: int, max_views: int):
+    """The sweep's samples for a candidate batch: (proj (M, N, 2), img
+    (M, V) view per sample, pix (M, V, 2) centre per sample, gate).  With
+    the view gate (``0 < max_views < N``) V = max_views and gate is
+    (top_idx, pick_ok) of ``_gated_samples``; otherwise every view is
+    sampled (V = N) and gate is None."""
+    n_img = K.shape[0]
+    if 0 < max_views < n_img:
+        proj, vidx, pix_v, top_idx, pick_ok = _gated_samples(
+            K, R, t, centers, ref_idx, h_img, w_img, wid, max_views,
+        )
+        return proj, vidx, pix_v, (top_idx, pick_ok)
+    m = centers.shape[0]
     proj = project_pinhole(centers[:, None, :], K[None], R[None], t[None])
     img_b = torch.arange(n_img, dtype=torch.int32, device=centers.device)
-    desc, inb = _sweep(gray, img_b[None, :].expand(m, n_img), proj, wid, kernels)
-    ncc = _ncc(desc, desc[rows, ref], ncc_scale)             # (M, N)
-    not_ref = img_b[None, :].long() != ref[:, None]
-    vis = (ncc > min_ncc) & inb & inb[rows, ref][:, None] & not_ref
-    scores = torch.where(vis, ncc, torch.zeros_like(ncc))
-    vis_count = vis.sum(dim=1, dtype=torch.int32)
+    return proj, img_b[None, :].expand(m, n_img), proj, None
+
+
+def _score(desc, inb, samples, ref_idx, min_ncc, wid: int):
+    """NCC against the reference view's descriptor, the visibility rule
+    and the per-candidate counts, from the sweep of ``_view_samples``."""
+    proj, img, _, gate = samples
+    m, n_img = proj.shape[0], proj.shape[1]
+    side2 = (2 * wid + 1) ** 2
+    ncc_scale = side2 / (side2 - 1.0)
+    if gate is None:
+        ref = ref_idx.long()
+        rows = torch.arange(m, device=proj.device)
+        ncc = _ncc(desc, desc[rows, ref], ncc_scale)          # (M, N)
+        not_ref = img.long() != ref[:, None]
+        vis = (ncc > min_ncc) & inb & inb[rows, ref][:, None] & not_ref
+        scores = torch.where(vis, ncc, torch.zeros_like(ncc))
+        vis_count = vis.sum(dim=1, dtype=torch.int32)
+        score_mean = scores.sum(dim=1) / torch.clamp_min(vis_count, 1)
+        return vis, proj.to(torch.float32), score_mean, vis_count
+    top_idx, pick_ok = gate
+    ncc = _ncc(desc, desc[:, 0], ncc_scale)                   # (M, V)
+    vis_v = (
+        (ncc[:, 1:] > min_ncc) & inb[:, 1:] & inb[:, :1] & pick_ok
+    )                                                         # (M, V-1)
+    scores = torch.where(vis_v, ncc[:, 1:], torch.zeros_like(ncc[:, 1:]))
+    vis_count = vis_v.sum(dim=1, dtype=torch.int32)
     score_mean = scores.sum(dim=1) / torch.clamp_min(vis_count, 1)
+    vis = torch.zeros((m, n_img), dtype=torch.bool, device=proj.device)
+    vis = vis.scatter(1, top_idx, vis_v)
     return vis, proj.to(torch.float32), score_mean, vis_count
 
 
@@ -179,33 +240,3 @@ def _gated_samples(K, R, t, centers, ref_idx, h_img: int, w_img: int,
     vidx = torch.cat([ref[:, None], top_idx], dim=1)         # (M, V)
     pix_v = torch.gather(proj, 1, vidx[..., None].expand(m, max_views, 2))
     return proj, vidx, pix_v, top_idx, torch.isfinite(top_pref)
-
-
-def _photo_consistency_gated(
-    gray, K, R, t, centers, ref_idx, min_ncc, wid: int, max_views: int,
-    kernels=None,
-):
-    """Top-(max_views-1) geometric view selection + one stacked sweep.
-
-    Same contract as ``photo_consistency``; the sweep runs over
-    M x max_views samples (``_gated_samples``) instead of M x N.
-    """
-    n_img = gray.shape[0]
-    m = centers.shape[0]
-    side2 = (2 * wid + 1) ** 2
-    ncc_scale = side2 / (side2 - 1.0)
-    proj, vidx, pix_v, top_idx, pick_ok = _gated_samples(
-        K, R, t, centers, ref_idx, gray.shape[1], gray.shape[2], wid,
-        max_views,
-    )
-    desc, inb_v = _sweep(gray, vidx, pix_v, wid, kernels)    # (M, V, D) bf16
-    ncc = _ncc(desc, desc[:, 0], ncc_scale)                   # (M, V)
-    vis_v = (
-        (ncc[:, 1:] > min_ncc) & inb_v[:, 1:] & inb_v[:, :1] & pick_ok
-    )                                                         # (M, V-1)
-    scores = torch.where(vis_v, ncc[:, 1:], torch.zeros_like(ncc[:, 1:]))
-    vis_count = vis_v.sum(dim=1, dtype=torch.int32)
-    score_mean = scores.sum(dim=1) / torch.clamp_min(vis_count, 1)
-    vis = torch.zeros((m, n_img), dtype=torch.bool, device=centers.device)
-    vis = vis.scatter(1, top_idx, vis_v)
-    return vis, proj.to(torch.float32), score_mean, vis_count

@@ -6,9 +6,14 @@ round accepts nothing and no deferred patch is left.  Each round's patches
 reach the host as one small payload copy; the frontier, the backlog and
 the occupancy grid stay on the device.
 
+With a mesh (``parallel.DataMesh``) the stage runs on the mesh's lead
+device, replicates the bf16 stack and the cameras once, seeds unsharded
+(as the JAX package does) and splits every expansion round's candidate
+batch over the shards (``mvs/expand.py``).
+
 Not ported yet, and raising NotImplementedError: ``checkpoint_dir``
-(mid-MVS resume, ROADMAP queue 1 item 12), ``mesh`` (item 14) and
-``enable_outlier_filter`` (item 11).  ``MvsConfig.shape_buckets``,
+(mid-MVS resume, ROADMAP queue 1 item 12) and ``enable_outlier_filter``
+(item 11).  ``MvsConfig.shape_buckets``,
 ``overlap_seed_fetch`` and ``rounds_per_call`` are scheduling knobs of the
 JAX package (compile reuse, hiding a remote link's fetch latency) whose
 output is identical either way; they are read nowhere here.
@@ -37,6 +42,7 @@ from sfm_tpu_torch.mvs.expand import _nonzero_static, expansion_round
 from sfm_tpu_torch.mvs.photoconsistency import unpack_patch_payload
 from sfm_tpu_torch.mvs.seed import build_seed_candidates, seed_patches
 from sfm_tpu_torch.ops._launch import use_kernel
+from sfm_tpu_torch.parallel.mesh import DataMesh
 from sfm_tpu_torch.sfm.pipeline import SparseReconstruction
 from sfm_tpu_torch.utils.metrics import Metrics, StageTimer
 
@@ -140,16 +146,14 @@ def dense_reconstruction(
 
     ``kernels`` as ``RuntimeConfig.kernels``: None runs kernel K2 on CUDA
     (its plain version on the CPU), False the plain version on any device.
+    With ``mesh`` the stage runs on ``mesh.lead`` (``device`` is not read)
+    and the expansion rounds shard their candidate batches; the cloud
+    equals the unsharded run's.
     """
     if checkpoint_dir is not None:
         raise NotImplementedError(
             "MVS checkpoint/resume is not ported to sfm_tpu_torch yet "
             "(ROADMAP queue 1 item 12)"
-        )
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded MVS (mesh) is not ported to sfm_tpu_torch yet "
-            "(ROADMAP queue 1 item 14)"
         )
     if config.enable_outlier_filter:
         raise NotImplementedError(
@@ -168,7 +172,10 @@ def dense_reconstruction(
     )
     knobs = mvs_device_knobs(config)
     cap = config.round_capacity
-    device = torch.device(device)
+    if mesh is not None:
+        metrics.record("mvs_mesh_devices", mesh.size)
+    device = mesh.lead if mesh is not None else torch.device(device)
+    mesh = mesh or DataMesh([device])
 
     gray = device_gray(images, device)
     use_kernel(gray, kernels)  # kernels=True on a CPU device raises here
@@ -183,6 +190,8 @@ def dense_reconstruction(
     t = dev(calib.t, torch.float32)
     centers_cam = dev(calib.centers, torch.float32)
     occupancy = make_occupancy(n, h, w, config.cell_size, device)
+    # The expansion rounds' per-shard copies, made once for the stage.
+    shards = tuple(mesh.replicate(x) for x in (gray, K, R, t))
 
     with timers.stage("seed"):
         track_id, ref_obs, other_obs = build_seed_candidates(
@@ -247,10 +256,10 @@ def dense_reconstruction(
                     backlog = None
             skip_first_merge = False
             frontier, occupancy, packed = expansion_round(
-                gray, K, R, t, centers_cam, occupancy,
+                *shards, centers_cam, occupancy,
                 frontier["c"], frontier["n"], frontier["vis"],
                 frontier["proj"], frontier["valid"],
-                knobs, bound, cap, scale, kernels=kernels,
+                knobs, bound, cap, scale, kernels=kernels, mesh=mesh,
             )
             # ONE small copy per round; the frontier stays on the device.
             ph = packed.cpu().numpy()

@@ -1,10 +1,14 @@
 """Shared checks for the kernel wrappers (ops/harris.py, ops/gather.py).
 
 A wrapper takes its plain PyTorch version only for a tensor on the CPU; a
-CUDA tensor launches the kernel or raises.  Any other device raises.
+CUDA tensor launches the kernel or raises.  Any other device raises.  A
+kernel launches on its tensor's device (``launch_on``), whichever device
+the calling thread has current.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -31,8 +35,13 @@ def check_launch(name: str, err: int) -> None:
         raise RuntimeError(f"{name}: kernel launch failed (cudaError {err})")
 
 
-def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+@contextlib.contextmanager
+def launch_on(t: torch.Tensor):
+    """Make ``t``'s device current for a launch and yield that device's
+    current stream (a C entry point launches with ``<<<..., stream>>>`` on
+    the thread's current device, so both have to be ``t``'s)."""
+    with torch.cuda.device(t.device):
+        yield torch.cuda.current_stream().cuda_stream
 
 
 def use_kernel(t: torch.Tensor, kernels) -> bool:

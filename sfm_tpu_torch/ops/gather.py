@@ -7,13 +7,17 @@ bilinear_sample_patches_stack(gray.float(), ...))`` cast to bf16.  The
 TPU kernel's row/lane slab packing and sample chunking are Mosaic
 artifacts and have no counterpart: the CUDA kernel computes each window's
 origin from (image, cx, cy) itself.
+
+``sample_normalized_patches_sharded`` (K2s) is the multi-device wrapper:
+the stack replicated, the samples split over a ``parallel.DataMesh``, one
+K2 launch per shard on the shard's device.
 """
 
 from __future__ import annotations
 
 import torch
 
-from sfm_tpu_torch.ops._launch import check_launch, on_cpu, stream_of
+from sfm_tpu_torch.ops._launch import check_launch, launch_on, on_cpu
 from sfm_tpu_torch.ops.ncc import _inbounds, bilinear_sample_patches_stack
 from sfm_tpu_torch.ops.patches import normalize_descriptors
 from sfm_tpu_torch.utils.build import kernel_library
@@ -71,10 +75,11 @@ def sample_normalized_patches(gray, img_idx, centers, wid: int = 5):
         desc = torch.empty((m, side * side), dtype=torch.bfloat16,
                            device=gray.device)
         if m:
-            err = kernel_library().sample_normalized_patches_bf16(
-                gray.data_ptr(), img.data_ptr(), ctr.data_ptr(),
-                desc.data_ptr(), m, n, h, w, wid, stream_of(gray),
-            )
+            with launch_on(gray) as stream:
+                err = kernel_library().sample_normalized_patches_bf16(
+                    gray.data_ptr(), img.data_ptr(), ctr.data_ptr(),
+                    desc.data_ptr(), m, n, h, w, wid, stream,
+                )
             check_launch("sample_normalized_patches", err)
             sample_normalized_patches.launches += 1
     inb = _inbounds(ctr[:, 0], ctr[:, 1], h, w, wid)
@@ -82,3 +87,45 @@ def sample_normalized_patches(gray, img_idx, centers, wid: int = 5):
 
 
 sample_normalized_patches.launches = 0
+
+
+def sample_shards(grays, imgs, ctrs, wid: int):
+    """K2s's launch step: one ``sample_normalized_patches`` call per shard,
+    shard i's samples (``imgs[i]``, ``ctrs[i]``) against its replica of the
+    stack ``grays[i]``, each on that shard's device (CPU shards take the
+    plain version).  Every photo-consistency sweep comes through here (a
+    run without a mesh as one shard).  Returns the per-shard (desc,
+    inbounds) pairs; every K2 launch is also counted in
+    ``sample_normalized_patches_sharded.launches``.  Nothing here waits for
+    a device, so the shards' devices overlap."""
+    before = sample_normalized_patches.launches
+    out = [sample_normalized_patches(g, i, c, wid)
+           for g, i, c in zip(grays, imgs, ctrs)]
+    sample_normalized_patches_sharded.launches += (
+        sample_normalized_patches.launches - before
+    )
+    return out
+
+
+def sample_normalized_patches_sharded(gray, img_idx, centers, wid: int, mesh):
+    """K2 over a mesh: counterpart of ``sfm_tpu``'s
+    ``sample_normalized_patches_sharded`` (``shard_map`` with the stack
+    replicated and the samples split over the "data" axis).
+
+    ``gray`` is the (N, H, W) bf16 stack, or the per-shard list that
+    ``mesh.replicate`` made of it (a stage replicates once); ``img_idx``
+    (M, ...) and ``centers`` (M, ..., 2) lie on the lead device.  The
+    leading axis is padded to a multiple of the shards -- pad rows carry
+    image 0 and centre (0, 0), and are sliced off again -- and each shard
+    launches K2 on its slice.  Samples are independent, so the result is
+    bit-equal to one ``sample_normalized_patches`` call.
+    """
+    m = img_idx.shape[0]
+    parts = sample_shards(mesh.replicate(gray), mesh.split(img_idx),
+                          mesh.split(centers), wid)
+    desc = mesh.gather([d for d, _ in parts], m)
+    inb = mesh.gather([b for _, b in parts], m)
+    return desc, inb
+
+
+sample_normalized_patches_sharded.launches = 0

@@ -18,7 +18,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from sfm_tpu_torch.ops._launch import check_launch, on_cpu, stream_of, use_kernel
+from sfm_tpu_torch.ops._launch import check_launch, launch_on, on_cpu, use_kernel
 from sfm_tpu_torch.utils.build import kernel_library
 
 _INT32_MIN = -(2 ** 31)
@@ -89,10 +89,11 @@ def harris_response(gray: torch.Tensor, k: float = 0.04) -> torch.Tensor:
     n, h, w = gray.shape
     out = torch.empty_like(gray)
     if gray.numel():
-        err = kernel_library().harris_response_f32(
-            gray.data_ptr(), out.data_ptr(), n, h, w, ctypes.c_float(k),
-            stream_of(gray),
-        )
+        with launch_on(gray) as stream:
+            err = kernel_library().harris_response_f32(
+                gray.data_ptr(), out.data_ptr(), n, h, w, ctypes.c_float(k),
+                stream,
+            )
         check_launch("harris_response", err)
         harris_response.launches += 1
     return out

@@ -6,6 +6,13 @@ pair goes through match -> RANSAC -> triangulate -> two-view gate as one
 batched tensor program with a leading pair axis (the JAX package maps the
 same step over pairs).  Only the track-store merge (hash-based,
 order-dependent) runs on the host, pair by pair in schedule order.
+
+Feature detection is split over the image axis of a mesh
+(``parallel.DataMesh``) and the pair program over the pair axis, each shard
+on its own device (both are embarrassingly parallel), and the results are
+gathered on the lead device before the track store: the same
+reconstruction whatever the mesh.  A run without a mesh is a mesh of its
+one device.
 """
 
 from __future__ import annotations
@@ -17,7 +24,7 @@ import numpy as np
 import torch
 
 from sfm_tpu_torch.config import PipelineConfig
-from sfm_tpu_torch.features.frontend import detect_and_describe
+from sfm_tpu_torch.features.frontend import FeatureSet, detect_and_describe
 from sfm_tpu_torch.features.matching import match_descriptors
 from sfm_tpu_torch.geometry.projection import project_pinhole, projection_matrix
 from sfm_tpu_torch.geometry.triangulation import (
@@ -27,7 +34,12 @@ from sfm_tpu_torch.geometry.triangulation import (
 from sfm_tpu_torch.io.calib import Calibration
 from sfm_tpu_torch.io.images import device_gray
 from sfm_tpu_torch.ops._launch import use_kernel
-from sfm_tpu_torch.sfm.ransac import ransac_fundamental
+from sfm_tpu_torch.parallel.mesh import DataMesh
+from sfm_tpu_torch.sfm.ransac import (
+    draw_uniforms,
+    ransac_fundamental,
+    samples_from_uniforms,
+)
 from sfm_tpu_torch.sfm.tracks import TrackStore
 from sfm_tpu_torch.utils.metrics import Metrics, StageTimer
 
@@ -93,16 +105,23 @@ class SparseReconstruction:
 
 
 def pair_geometry(fs, ia, ib, K, R, t, config: PipelineConfig,
-                  samples=None, generator=None):
+                  samples=None, uniforms=None, real=None):
     """The per-pair step for all pairs at once (leading pair axis P).
 
     fs: FeatureSet of the stack; ia, ib: (P,) image indices; K, R, t: the
-    stack's f32 cameras.  Returns (geo (P, M, 8) [p1 | p2 | X | ok],
+    stack's f32 cameras.  RANSAC takes ``samples`` (P, H, 8) as given, or
+    maps ``uniforms`` (P, H*8) onto each pair's valid matches
+    (``samples_from_uniforms``).  ``real`` (P,) bool masks pad pairs: their
+    features count as invalid.  Returns (geo (P, M, 8) [p1 | p2 | X | ok],
     stats (P, 4) [matches, inliers, gated, err_sum], F (P, 3, 3)).
     """
     fc, rc, sc = config.features, config.ransac, config.sfm
+    val_a, val_b = fs.valid[ia], fs.valid[ib]
+    if real is not None:
+        val_a = val_a & real[:, None]
+        val_b = val_b & real[:, None]
     m = match_descriptors(
-        fs.descriptors[ia], fs.valid[ia], fs.descriptors[ib], fs.valid[ib],
+        fs.descriptors[ia], val_a, fs.descriptors[ib], val_b,
         lowe_ratio=fc.lowe_ratio, max_matches=fc.max_matches,
         mutual_check=fc.mutual_check,
     )
@@ -115,10 +134,12 @@ def pair_geometry(fs, ia, ib, K, R, t, config: PipelineConfig,
     p1 = take(cor_a, m.idx1).float()
     p2 = take(cor_b, m.idx2).float()
     enough = m.count >= fc.min_matches
+    valid = m.valid & enough[:, None]
+    if samples is None:
+        samples = samples_from_uniforms(valid, uniforms)
     F, inliers, n_inl = ransac_fundamental(
-        p1, p2, m.valid & enough[:, None], samples=samples,
-        num_hypotheses=rc.num_hypotheses, threshold_px=rc.inlier_threshold_px,
-        refit=rc.refit_on_inliers, generator=generator,
+        p1, p2, valid, samples=samples, threshold_px=rc.inlier_threshold_px,
+        refit=rc.refit_on_inliers,
     )
     P = projection_matrix(K, R, t)
     Pab = torch.stack([P[ia], P[ib]], dim=1)  # (P, 2, 3, 4)
@@ -149,12 +170,36 @@ def pair_geometry(fs, ia, ib, K, R, t, config: PipelineConfig,
     return geo, stats, F
 
 
+def _pair_geometry_on_mesh(fs, ia, ib, K, R, t, config, samples, uniforms,
+                           mesh):
+    """``pair_geometry`` with the pair axis split over ``mesh``: features
+    and cameras replicated per device, pad pairs (0, 0) masked invalid
+    (``real``) with zero draws, the outputs gathered on the lead device
+    without the pad rows."""
+    n_pairs = ia.shape[0]
+    real = torch.ones(n_pairs, dtype=torch.bool, device=ia.device)
+    draws = samples if samples is not None else uniforms
+    split = [mesh.split(x) for x in (ia, ib, real, draws)]
+    reps = [mesh.replicate(x) for x in
+            (fs.corners, fs.valid, fs.descriptors, K, R, t)]
+    outs = []
+    for (ia_s, ib_s, real_s, draws_s), (cor, val, desc, K_s, R_s, t_s) in zip(
+            zip(*split), zip(*reps)):
+        given = dict(samples=draws_s) if samples is not None else dict(uniforms=draws_s)
+        outs.append(pair_geometry(
+            FeatureSet(cor, val, desc), ia_s, ib_s, K_s, R_s, t_s, config,
+            real=real_s, **given,
+        ))
+    return tuple(mesh.gather(list(x), n_pairs) for x in zip(*outs))
+
+
 def structure_from_motion(
     images: np.ndarray,
     calib: Calibration,
     config: PipelineConfig = PipelineConfig(),
     track_store: Optional[TrackStore] = None,
     ransac_samples: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> SparseReconstruction:
     """Run sparse SfM over a uint8 RGB (N, H, W, 3) stack with known
     calibration on ``config.runtime.device``.
@@ -162,7 +207,15 @@ def structure_from_motion(
     As in the reference, camera poses come from the calibration; RANSAC
     rejects outlier matches.  ``ransac_samples`` (P, H, 8) fixes the RANSAC
     hypotheses per pair (tests feed the JAX package's draws); otherwise they
-    are drawn from a generator seeded with ``config.runtime.seed``.
+    are drawn from a generator seeded with ``config.runtime.seed``, once for
+    all pairs before any split, so a mesh of any size draws the same.
+
+    With ``mesh`` (a ``parallel.DataMesh``) the stage runs on ``mesh.lead``
+    (``config.runtime.device`` is not read): features shard over images
+    (the image axis padded with zero images to a multiple of the shards,
+    recorded as ``features_image_axis_padded``) and the pair program over
+    pairs (pad pairs (0, 0), masked invalid and dropped before the track
+    store).
     """
     timers = StageTimer()
     metrics = Metrics()
@@ -171,17 +224,32 @@ def structure_from_motion(
         raise ValueError(
             f"{n} images but only {calib.num_views} calibrated cameras"
         )
-    device = torch.device(config.runtime.device)
+    if mesh is not None:
+        metrics.record("mesh_devices", mesh.size)
+    device = mesh.lead if mesh is not None else torch.device(config.runtime.device)
+    mesh = mesh or DataMesh([device])
     pairs = pair_schedule(n, config.sfm.pair_mode)
+    n_pairs = len(pairs)
     ia = torch.tensor([p[0] for p in pairs], dtype=torch.long, device=device)
     ib = torch.tensor([p[1] for p in pairs], dtype=torch.long, device=device)
 
     with timers.stage("features"):
         gray = device_gray(images, device)
         kernels = use_kernel(gray, config.runtime.kernels)
-        fs = detect_and_describe(gray, config.features, kernels=kernels)
+        pad = (-n) % mesh.size
+        if pad:
+            metrics.record("features_image_axis_padded", pad)
+        # Zero pad images: their Harris response is 0 everywhere, so they
+        # keep no corner and no valid descriptor.
+        parts = [detect_and_describe(g, config.features, kernels=kernels)
+                 for g in mesh.split(gray)]
+        fs = FeatureSet(*(
+            mesh.gather([getattr(p, k) for p in parts], n)
+            for k in ("corners", "valid", "descriptors")
+        ))
         if device.type == "cuda":
-            torch.cuda.synchronize(device)  # attribute feature time here
+            for d in dict.fromkeys(mesh.devices):
+                torch.cuda.synchronize(d)  # attribute feature time here
 
     with timers.stage("pair_geometry"):
         cams = calib.subset(range(n))
@@ -189,9 +257,12 @@ def structure_from_motion(
             torch.from_numpy(a.astype(np.float32)).to(device)
             for a in (cams.K, cams.R, cams.t)
         )
-        gen = torch.Generator().manual_seed(config.runtime.seed)
-        geo_d, stats_d, F_d = pair_geometry(
-            fs, ia, ib, K, R, t, config, samples=ransac_samples, generator=gen,
+        uniforms = None
+        if ransac_samples is None:
+            gen = torch.Generator().manual_seed(config.runtime.seed)
+            uniforms = draw_uniforms((n_pairs,), config.ransac.num_hypotheses, gen)
+        geo_d, stats_d, F_d = _pair_geometry_on_mesh(
+            fs, ia, ib, K, R, t, config, ransac_samples, uniforms, mesh,
         )
         geo = geo_d.cpu().numpy()
         stats = stats_d.cpu().numpy()
@@ -218,7 +289,7 @@ def structure_from_motion(
         world, offsets, obs = store.export()
 
     n_gate_total = int(n_gate.sum())
-    metrics.record("num_pairs", len(pairs))
+    metrics.record("num_pairs", n_pairs)
     metrics.record("matches_per_pair_mean", float(n_match.mean()))
     metrics.record("inliers_per_pair_mean", float(n_inl.mean()))
     metrics.record("gated_points_total", n_gate_total)

@@ -6,68 +6,64 @@ Counterpart of ``sfm_tpu/sfm/ransac.py``: a fixed batch of H minimal
 correspondence by Sampson distance, and the best is refit on its inliers.
 Leading batch dimensions (the pair axis) are carried throughout.
 
-Random draws cannot be reproduced across frameworks, so the hypotheses can
-be given as ``samples``; otherwise they are drawn from a ``torch.Generator``.
+Random draws cannot be reproduced across frameworks, so the hypotheses are
+given as ``samples``: the JAX package's own draws in the tests, or
+``samples_from_uniforms`` of ``draw_uniforms`` (uniforms drawn from a
+``torch.Generator``) (the pipeline draws them for all pairs at once, before
+any split over a mesh).
 """
 
 from __future__ import annotations
-
-from typing import Optional
 
 import torch
 
 from sfm_tpu_torch.geometry.epipolar import eight_point, sampson_distance
 
 
-def draw_samples(valid: torch.Tensor, num_hypotheses: int,
-                 generator: torch.Generator) -> torch.Tensor:
-    """(..., H, 8) int64 indices drawn uniformly with replacement from the
-    valid rows of ``valid`` (..., M).
+def draw_uniforms(batch, num_hypotheses: int,
+                  generator: torch.Generator) -> torch.Tensor:
+    """(*batch, H*8) float64 uniform numbers from ``generator``, on the CPU
+    (so a seed gives the same hypotheses on any device)."""
+    return torch.rand((*batch, num_hypotheses * 8), generator=generator,
+                      dtype=torch.float64)
 
-    Uniform numbers come from ``generator`` on the CPU and move to
-    ``valid``'s device, so a seed gives the same hypotheses on any device.
-    A batch row without valid entries draws index 0 (its hypotheses score
-    nothing: every correspondence is invalid).
-    """
+
+def samples_from_uniforms(valid: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Map uniforms u (..., H*8) in [0, 1) to (..., H, 8) indices of valid
+    rows of ``valid`` (..., M).  A batch row without valid entries draws
+    index 0 (its hypotheses score nothing: every correspondence is
+    invalid)."""
     batch = valid.shape[:-1]
-    u = torch.rand((*batch, num_hypotheses * 8), generator=generator,
-                   dtype=torch.float64).to(valid.device)
+    u = u.to(valid.device)
     n_valid = valid.sum(dim=-1, keepdim=True)
     r = torch.minimum((u * n_valid).long(), torch.clamp_min(n_valid - 1, 0))
     # The r-th valid row: first position whose running count exceeds r.
     cum = torch.cumsum(valid.long(), dim=-1)
     idx = torch.searchsorted(cum.contiguous(), r + 1)
     idx = torch.where(n_valid > 0, idx, torch.zeros_like(idx))
-    return idx.reshape(*batch, num_hypotheses, 8)
+    return idx.reshape(*batch, u.shape[-1] // 8, 8)
 
 
 def ransac_fundamental(
     pts1,
     pts2,
     valid,
-    samples: Optional[torch.Tensor] = None,
-    num_hypotheses: int = 512,
+    samples: torch.Tensor,
     threshold_px: float = 2.0,
     refit: bool = True,
-    generator: Optional[torch.Generator] = None,
 ):
     """Robustly estimate F from padded correspondences.
 
     Args:
       pts1, pts2: (..., M, 2) float correspondence coordinates (padded).
       valid: (..., M) bool validity of each correspondence.
-      samples: optional (..., H, 8) int64 correspondence indices, one row
-        per hypothesis; drawn from ``generator`` when absent.
-      num_hypotheses: H when ``samples`` is absent.
+      samples: (..., H, 8) int64 correspondence indices, one row per
+        hypothesis.
       threshold_px: inlier threshold on sqrt(Sampson distance), px.
       refit: re-estimate F from all inliers of the best hypothesis.
 
     Returns (F (..., 3, 3), inliers (..., M) bool, num_inliers (...,) int32).
     """
-    if samples is None:
-        if generator is None:
-            raise ValueError("ransac_fundamental needs samples or a generator")
-        samples = draw_samples(valid, num_hypotheses, generator)
     samples = samples.to(pts1.device).long()
     m = pts1.shape[-2]
     h = samples.shape[-2]

@@ -185,8 +185,6 @@ def test_bundle_adjust_matches_jax(sphere_sparse):
     assert rec.rms_reprojection_error() < 0.3 and info["iterations"] >= 1
     with pytest.raises(NotImplementedError, match="item 10"):
         bundle_adjust(rec, BaConfig(refine_cameras=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        bundle_adjust(rec, BaConfig(), mesh=object(), device="cpu")
 
 
 @pytest.fixture(scope="module")

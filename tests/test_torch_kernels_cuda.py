@@ -5,7 +5,10 @@ bit-equal response and corners on a rendered 48 x 480 x 640 stack; K2 (slab
 gather) within one bf16 ulp at integer centers and 8e-3 at 163,840
 fractional centers, in-bounds masks equal; K2 at the centres one ported
 expansion round produces on the card, plus NaN, +-inf and 1e10 centres,
-reading nothing outside the stack.  Marked ``cuda``; each test skips where
+reading nothing outside the stack; phase 11's K2s (the sharded wrapper) on
+4 virtual shards of cuda:0, bit-equal to one K2 call at 163,840 and 163,843
+(the pad path) fractional centres; and K1 and K2 on cuda:1 while cuda:0 is
+current (skipped below two GPUs).  Marked ``cuda``; each test skips where
 ``torch.cuda.is_available()`` is False.  On the card (tests/conftest.py
 imports jax, which the card's machine lacks):
 
@@ -75,3 +78,28 @@ def test_k2_at_expansion_round_and_nonfinite_centres(smoke, stack):
     assert out["samples"] > 100_000 and out["nonfinite_centres"] >= 8
     assert out["round_accepted"] > 0
     assert sample_normalized_patches.launches > before
+
+
+def test_k2_sharded_bit_equal_to_one_call(smoke, stack):
+    from sfm_tpu_torch.ops.gather import sample_normalized_patches_sharded
+
+    _, (img_f, ctr_f) = smoke.k2_inputs(stack, torch.zeros(
+        (stack.shape[0], 1, 2), dtype=torch.int32, device=stack.device))
+    before = sample_normalized_patches_sharded.launches
+    out = smoke.check_k2_sharded(stack.to(torch.bfloat16), img_f, ctr_f)
+    assert out["max_abs_err"] == 0.0
+    assert out["max_abs_err_plain"] <= smoke.K2_FRAC_ATOL
+    # 2 shapes x 4 virtual shards (+ every GPU where there are several),
+    # plus the timing windows.
+    assert sample_normalized_patches_sharded.launches >= before + 2 * smoke.SHARDS
+
+
+def test_kernels_launch_on_their_tensors_device(smoke, stack):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from sfm_tpu_torch.ops.harris import detect_corners
+
+    corners, _, _ = detect_corners(stack, max_corners=1024, nms_radius=4,
+                                   rel_threshold=1e-6, border=smoke.WID + 1)
+    out = smoke.check_second_gpu(stack, smoke.k2_inputs(stack, corners))
+    assert out["k2_max_abs_err"] <= smoke.K2_FRAC_ATOL

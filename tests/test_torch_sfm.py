@@ -40,7 +40,11 @@ from sfm_tpu_torch.io import Calibration, gray_tensor, read_pars, read_ply, writ
 from sfm_tpu_torch.io.ply import export_ply
 from sfm_tpu_torch.ops._launch import use_kernel
 from sfm_tpu_torch.sfm.pipeline import pair_schedule, structure_from_motion
-from sfm_tpu_torch.sfm.ransac import draw_samples, ransac_fundamental
+from sfm_tpu_torch.sfm.ransac import (
+    draw_uniforms,
+    ransac_fundamental,
+    samples_from_uniforms,
+)
 from sfm_tpu_torch.sfm.tracks import TrackStore
 from sfm_tpu_torch.utils import synth
 
@@ -189,8 +193,12 @@ def test_draw_samples():
     valid = torch.zeros(3, 50, dtype=torch.bool)
     valid[0, :20] = True
     valid[1, ::7] = True
-    a = draw_samples(valid, 64, torch.Generator().manual_seed(1))
-    b = draw_samples(valid, 64, torch.Generator().manual_seed(1))
+
+    def draw():
+        u = draw_uniforms((3,), 64, torch.Generator().manual_seed(1))
+        return samples_from_uniforms(valid, u)
+
+    a, b = draw(), draw()
     assert a.shape == (3, 64, 8) and torch.equal(a, b)
     assert torch.gather(valid[:2], 1, a[:2].reshape(2, -1)).all()
     assert set(a[1].unique().tolist()) == set(range(0, 50, 7))  # all reached
@@ -320,8 +328,7 @@ def test_cli_sfm_stage(tmp_path, capsys):
     # default path; so do unknown stages and BA/MVS without a sparse stage.
     for extra in (["--stages", "sfm", "--plot"], ["--refine_cameras"],
                   ["--enable_outlier_filter"], ["--checkpoint_dir", out],
-                  ["--mesh_devices", "2"], ["--debug"],
-                  ["--profile_dir", out]):
+                  ["--debug"], ["--profile_dir", out]):
         assert t_main(args + extra) == 2
         assert "not yet ported" in capsys.readouterr().err
     assert t_main(args + ["--stages", "sfm,dense"]) == 2
