@@ -19,7 +19,13 @@ to one K2 call on 4 virtual shards of the card, the three stages on that
 over every GPU, and K1 and K2 on a second GPU while the first is current,
 where there are two or more: ``chiprun --chips 4 -- python3 chip_smoke.py``
 drives those branches), where K2s's time goes (host enqueue, device
-kernels), and the CLI with ``--mesh_devices 4``.  It prints as its last
+kernels), and the CLI with ``--mesh_devices 4``.  Then K3 (the tile-resident
+sampler) in its three modes against its plain versions and K2, and its
+entry point ``sfm_tpu_torch.tools.prof_tile``; MVS with the outlier filter
+(its K2 launch counted, the device filter held to the host oracle); MVS
+killed after two rounds and resumed from its checkpoint, and the CLI with
+``--checkpoint_dir`` then ``--stages mvs`` alone; joint bundle adjustment
+with both camera solvers.  It prints as its last
 line ``{"ok": true, "device": {...}}``.  Any failed check raises and the exit
 code is nonzero.  Without CUDA it exits 1 and prints no result.  Imports
 nothing of JAX.
@@ -28,6 +34,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import statistics
@@ -143,6 +150,97 @@ def check_k2(gray_bf16, k2_in):
     return out
 
 
+def k3_cases(gray_bf16, img_f, ctr_f):
+    """The inputs K3 is held on, as (name, stack, img, ctr): the TPU tool's
+    case (81,920 in-bounds centres on its random 48 x 480 x 640 stack); one
+    expansion round's 163,840 fractional centres on the rendered ring; NaN,
+    +-inf and huge centres plus samples on the first and last rows and
+    columns of the first and last image, on a stack that lies between two
+    NaN guard images (a read outside it turns the result NaN); and the same
+    edges on an odd-width stack, whose rows are only 2-byte aligned."""
+    import torch
+
+    from sfm_tpu_torch.tools import prof_tile
+
+    dev = gray_bf16.device
+    yield ("tool case", *prof_tile.case_tensors(81920, dev))
+    yield ("expansion round", gray_bf16, img_f, ctr_f)
+    inf, nan = float("inf"), float("nan")
+    bad = [[nan, 100], [100, nan], [nan, nan], [inf, 100], [-inf, 100],
+           [100, inf], [100, -inf], [inf, -inf], [1e10, 100], [100, 1e10],
+           [-1e10, -1e10], [3e9, -3e9], [-3e9, 3e9]]
+    g = torch.Generator(device="cpu").manual_seed(2)
+    for name, (n, h, w) in (("guarded edges", tuple(gray_bf16.shape)),
+                            ("odd width", (3, 40, 201))):
+        buf = torch.full((n + 2, h, w), nan, dtype=torch.bfloat16, device=dev)
+        if name == "guarded edges":
+            buf[1:-1] = gray_bf16
+        else:
+            buf[1:-1] = (torch.rand((n, h, w), generator=g) * 255).to(dev)
+        k = 4096
+        edge = torch.rand((k, 2), generator=g) * torch.tensor([w - 1.0, 14.0])
+        edge[k // 2:, 1] += h - 15.0           # last rows; first rows above
+        side = torch.rand((k, 2), generator=g) * torch.tensor([14.0, h - 1.0])
+        side[k // 2:, 0] += w - 15.0           # last columns; first before
+        ctr = torch.cat([edge, side, torch.tensor(bad)])
+        img = torch.cat([
+            torch.tensor([0, n - 1, 0, n - 1],
+                         dtype=torch.int32).repeat_interleave(k // 2),
+            torch.arange(len(bad), dtype=torch.int32) % n])
+        yield name, buf[1:-1], img.to(dev), ctr.to(dev).contiguous()
+
+
+def check_k3(gray_bf16, img_f, ctr_f):
+    """K3 against its plain versions and against K2 on ``k3_cases``, at
+    S in {8, 32, 128} in all three modes: copy-only bit-equal to the raw
+    window; the full modes within K2_FRAC_ATOL of ``_sample_plain`` (one
+    bf16 step at the descriptors' unit scale: only the order of the two
+    sums differs) and finite wherever the centre is; reports whether the
+    full modes are bit-equal to K2, whose arithmetic they share."""
+    import torch
+
+    from sfm_tpu_torch.ops.gather import _sample_plain, sample_normalized_patches
+    from sfm_tpu_torch.ops.gather_tile import (
+        _copy_plain,
+        sample_normalized_patches_tiled,
+    )
+    from sfm_tpu_torch.tools.prof_tile import modes
+
+    out = {"max_abs_err": 0.0, "max_ulps": 0.0, "bit_equal_k2": True,
+           "launches": 0}
+    for name, g, img, ctr in k3_cases(gray_bf16, img_f, ctr_f):
+        fin = torch.isfinite(ctr).all(dim=1)
+        want = {True: _sample_plain(g, img, ctr, WID)[fin],
+                False: _copy_plain(g, img, ctr, WID)[fin]}
+        k2 = sample_normalized_patches(g, img, ctr, WID)[0][fin]
+        err = ulps = 0.0
+        same = True
+        for _, mode, S, kw in modes():
+            before = sample_normalized_patches_tiled.launches
+            got = sample_normalized_patches_tiled(g, img, ctr, WID, **kw)[fin]
+            torch.cuda.synchronize()
+            out["launches"] += sample_normalized_patches_tiled.launches - before
+            check(bool(torch.isfinite(got.float()).all()),
+                  f"K3 {name} S={S} {mode}: read outside the stack (NaN)")
+            if not kw["extract"]:
+                check(torch.equal(got, want[False]),
+                      f"K3 {name} S={S} copy-only: not bit-equal to the window")
+                continue
+            e = float((got.float() - want[True].float()).abs().max())
+            check(e <= K2_FRAC_ATOL, f"K3 {name} S={S} {mode}: {e} > {K2_FRAC_ATOL}")
+            err, ulps = max(err, e), max(ulps, bf16_ulps(got, want[True]))
+            same = same and torch.equal(got, k2)
+        log(f"K3 {name}: {img.numel()} samples ({int((~fin).sum())} non-finite "
+            f"centres) on {tuple(g.shape)}, 9 mode/S combinations: copy-only "
+            f"bit-equal; full modes max abs err {err:.3e} ({ulps:.2f} bf16 "
+            f"ulps) to the plain version, bit-equal to K2: {same}")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["max_ulps"] = max(out["max_ulps"], ulps)
+        out["bit_equal_k2"] = out["bit_equal_k2"] and same
+    check(out["launches"] == 4 * 9, "K3 launches counted once per call")
+    return out
+
+
 def cuda_ms(fn, reps=20, batch=10):
     """Median milliseconds per call: ``reps`` CUDA-event windows, each over
     ``batch`` back-to-back calls (so host launch overhead overlaps)."""
@@ -191,6 +289,193 @@ def host_and_device(fn, calls=50):
             "with_device_us": (t2 - t0) / calls * 1e6,
             "launches": len(kern) / calls,
             "device_ms": sum(e.time_range.elapsed_us() for e in kern) / 1e3 / calls}
+
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet): HBM3 bytes/s and
+# float32 operations/s outside the tensor cores (none of the kernels uses them).
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
+
+
+def bound(nbytes, flops):
+    """The least time the card could take, ms, and what bounds it: the
+    larger of bytes over the memory rate and operations over the peak."""
+    t_b, t_f = nbytes / PEAK_BYTES_S, flops / PEAK_F32_S
+    return {"bound_ms": max(t_b, t_f) * 1e3,
+            "bound_by": "bytes" if t_b >= t_f else "operations"}
+
+
+def gather_bound(gray_bf16, m):
+    """K2 / K3 on m samples: the stack read once, or only the windows this
+    run's samples touch where those are fewer bytes; 12 bytes of operands
+    and 242 of output per sample; ~8 operations per interpolated value and
+    ~6 per normalised one."""
+    side, win = 2 * WID + 1, 2 * WID + 2
+    nbytes = (min(gray_bf16.numel() * 2, m * win * win * 2) + m * 12
+              + m * side * side * 2)
+    return bound(nbytes, m * side * side * 14)
+
+
+def kernel_only_ms(fn, name_part, calls=20):
+    """Device time per call of the kernels whose name contains
+    ``name_part``, under torch.profiler: the kernel alone, apart from the
+    other launches of its wrapper."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and name_part in e.name]
+    # The profiler may lose the first events of a window: average those seen.
+    check(calls // 2 <= len(us) <= calls,
+          f"{name_part}: {len(us)} kernels seen in {calls} calls")
+    return sum(us) / 1e3 / len(us)
+
+
+def run_prof_tile(smi):
+    """The tool's sweep through its entry point, as a user runs it, with
+    K3's count set to 0 just before; returns (rows, launches)."""
+    from sfm_tpu_torch.ops.gather_tile import sample_normalized_patches_tiled
+    from sfm_tpu_torch.tools import prof_tile
+
+    sample_normalized_patches_tiled.launches = 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = prof_tile.main(["--m", "81920", "--iters", "20"])
+    launches = sample_normalized_patches_tiled.launches
+    log(f"python3 -m sfm_tpu_torch.tools.prof_tile --m 81920 --iters 20, on {smi}:")
+    log(out.getvalue().rstrip())
+    check(rc == 0, f"prof_tile exit code {rc}")
+    rows = [json.loads(ln.split(": ", 1)[1]) for ln in out.getvalue().splitlines()
+            if ln.startswith(("E0", "E1", "E2", "K2"))]
+    check(len(rows) == 11, f"prof_tile printed {len(rows)} rows, not 11")
+    check(launches > 0, "the tool's sweep launched K3 no time")
+    with contextlib.redirect_stdout(out):
+        rc = prof_tile.main(["--check"])
+    check(rc == 0, "prof_tile --check failed")
+    log("python3 -m sfm_tpu_torch.tools.prof_tile --check: CHECK OK")
+    return rows, launches
+
+
+def run_filtered_mvs(images, recon, hold_oracle):
+    """MVS at the CLI defaults with the outlier filter, with the filter's
+    K2 launches and samples counted inside its timer and, with
+    ``hold_oracle``, the device filter's keep mask held to the host oracle
+    on the same vis / proj (host seconds, inside the ``filter`` timer)."""
+    import numpy as np
+    import torch
+
+    from sfm_tpu_torch.config import MvsConfig
+    from sfm_tpu_torch.mvs import dense_reconstruction
+    from sfm_tpu_torch.mvs import pipeline
+    from sfm_tpu_torch.mvs.filter import filter_outliers
+    from sfm_tpu_torch.ops.gather import sample_normalized_patches
+
+    seen = {}
+    real_run, real_dev = pipeline._run_device_filter, pipeline.filter_outliers_device
+
+    def counted_run(*a, **kw):
+        before = sample_normalized_patches.launches
+        keep = real_run(*a, **kw)
+        seen["launches"] = sample_normalized_patches.launches - before
+        return keep
+
+    def held_to_oracle(pts, nrm, sco, vis, proj, valid, cell, gw, gh, **kw):
+        keep, group, hits = real_dev(pts, nrm, sco, vis, proj, valid, cell,
+                                     gw, gh, **kw)
+        seen["samples"] = int(vis.shape[0]) * (kw["k_hit"] + 1 if kw["k_hit"]
+                                               else vis.shape[1])
+        if hold_oracle:
+            t0 = time.perf_counter()
+            want = filter_outliers(*(x.cpu().numpy() for x in
+                                     (pts, nrm, sco, vis, proj)), cell, gw, gh)
+            seen["oracle_s"] = time.perf_counter() - t0
+            seen["oracle_equal"] = bool(np.array_equal(keep.cpu().numpy(), want))
+            seen["incidences"] = int(vis.sum())
+        return keep, group, hits
+
+    pipeline._run_device_filter = counted_run
+    pipeline.filter_outliers_device = held_to_oracle
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dense = dense_reconstruction(
+            images, recon.calib, recon, MvsConfig(enable_outlier_filter=True),
+            scale=1.0, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        pipeline._run_device_filter = real_run
+        pipeline.filter_outliers_device = real_dev
+    return dense, wall, seen
+
+
+def run_killed_and_resumed(images, recon, ckpt_dir, rounds=2):
+    """MVS at the CLI defaults saving its state every round, killed after
+    ``rounds`` rounds, then resumed from the file."""
+    import torch
+
+    from sfm_tpu_torch.config import MvsConfig
+    from sfm_tpu_torch.mvs import dense_reconstruction
+    from sfm_tpu_torch.mvs import pipeline
+    from sfm_tpu_torch.utils import checkpoint
+
+    real = pipeline.expansion_round
+    calls = {"n": 0}
+
+    def killing_round(*a, **kw):
+        calls["n"] += 1
+        if calls["n"] > rounds:
+            raise KeyboardInterrupt("killed")
+        return real(*a, **kw)
+
+    kw = dict(scale=1.0, device="cuda", checkpoint_dir=ckpt_dir, checkpoint_every=1)
+    pipeline.expansion_round = killing_round
+    try:
+        dense_reconstruction(images, recon.calib, recon, MvsConfig(), **kw)
+        check(False, "the killed MVS run ran to its end")
+    except KeyboardInterrupt:
+        pass
+    finally:
+        pipeline.expansion_round = real
+    state = checkpoint.load_mvs_state(ckpt_dir)
+    check(state is not None and int(state["counters"][1]) == rounds,
+          f"no MVS state of round {rounds} on disk")
+    size = os.path.getsize(os.path.join(ckpt_dir, checkpoint.MVS_STATE_FILE))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dense = dense_reconstruction(images, recon.calib, recon, MvsConfig(), **kw)
+    torch.cuda.synchronize()
+    check(checkpoint.load_mvs_state(ckpt_dir) is None,
+          "the finished run left its mid-run state")
+    return dense, time.perf_counter() - t0, size
+
+
+def run_joint_ba(recon, max_cams):
+    """Joint BA (f32) on a copy of ``recon``: dense Schur when ``max_cams``
+    admits the rig, PCG when it does not."""
+    import torch
+
+    from sfm_tpu_torch.ba import bundle_adjust
+    from sfm_tpu_torch.config import BaConfig
+
+    cfg = BaConfig(dtype="float32", refine_cameras=True,
+                   dense_schur_max_cams=max_cams)
+    bundle_adjust(sparse_copy(recon), cfg, device="cuda")  # warm
+    rec = sparse_copy(recon)
+    before = rec.rms_reprojection_error()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec, info = bundle_adjust(rec, cfg, device="cuda")
+    torch.cuda.synchronize()
+    return rec, info, before, time.perf_counter() - t0
 
 
 def sphere_bounds(world):
@@ -575,6 +860,8 @@ def main() -> int:
     from sfm_tpu_torch.ops.harris import _harris_math, harris_response
     from sfm_tpu_torch.utils import build
 
+    import numpy as np
+
     # --- 1. device, build ---------------------------------------------------
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -827,7 +1114,135 @@ def main() -> int:
               "CLI --mesh_devices BA cloud")
         check(dpts.shape[0] > 10000 and dmed < 0.02 and dp90 < 0.06,
               "CLI --mesh_devices dense cloud on the sphere")
+
+    # --- 14. K3 against its plain versions and K2; the tool's sweep ----------
+    from sfm_tpu_torch.ops.gather_tile import sample_normalized_patches_tiled
+    from sfm_tpu_torch.tools import prof_tile
+
+    k3 = check_k3(gray_bf16, img_f, ctr_f)
+    tile_rows, k3_launches = run_prof_tile(smi)
+    tg, ti, tc = prof_tile.case_tensors(81920, torch.device("cuda"))
+    k3_default = lambda: sample_normalized_patches_tiled(tg, ti, tc, WID)  # noqa: E731
+    k2_same = lambda: sample_normalized_patches(tg, ti, tc, WID)  # noqa: E731
+    k3_t = {
+        "ms": cuda_ms(k3_default),
+        "plain_ms": cuda_ms(lambda: _sample_plain(tg, ti, tc, WID)),
+        "k2_same_inputs_ms": cuda_ms(k2_same),
+        "kernel_only_ms": kernel_only_ms(k3_default, "gather_tile_kernel"),
+        "k2_kernel_only_ms": kernel_only_ms(k2_same, "gather_kernel"),
+    }
+    k3_modes = {f"{r['mode']}_S{r['S']}": r["time_s"] * 1e3 for r in tile_rows
+                if r["S"] is not None}
+    k3_modes_kernel_only = {
+        f"{mode}_S{S}": kernel_only_ms(
+            lambda kw=kw: sample_normalized_patches_tiled(tg, ti, tc, WID, **kw),
+            "gather_tile_kernel")
+        for _, mode, S, kw in prof_tile.modes()}
+    log(f"K3 at 81,920 samples (S 32, double-buffered) on {smi}, ms: "
+        + json.dumps({k: round(v, 5) for k, v in k3_t.items()}))
+    log("K3 kernel-only device ms by mode: "
+        + json.dumps({k: round(v, 5) for k, v in k3_modes_kernel_only.items()}))
+    kernel_only = {
+        "k1": kernel_only_ms(lambda: harris_response(gray, 0.04), "harris_kernel"),
+        "k2_int": kernel_only_ms(lambda: sample_normalized_patches(
+            gray_bf16, img_i, ctr_i, WID), "gather_kernel"),
+        "k2_frac": kernel_only_ms(lambda: sample_normalized_patches(
+            gray_bf16, img_f, ctr_f, WID), "gather_kernel"),
+    }
+    log("K1 / K2 kernel-only device ms: "
+        + json.dumps({k: round(v, 5) for k, v in kernel_only.items()}))
+
+    # --- 15. MVS with the outlier filter at the CLI defaults ----------------
+    f_first, _, seen = run_filtered_mvs(images, recon, hold_oracle=True)
+    check(seen["oracle_equal"], "device filter keep mask != the host oracle's")
+    sample_normalized_patches.launches = 0
+    sample_normalized_patches_sharded.launches = 0
+    fdense, f_wall, f_seen = run_filtered_mvs(images, recon, hold_oracle=False)
+    fm = fdense.metrics.values
+    med, p90, outward = dense_bounds(fdense.points, fdense.normals)
+    log(f"MVS with the outlier filter: {fm['mvs_num_points']} points, "
+        f"mvs_filtered_out {fm['mvs_filtered_out']}, "
+        f"{fm['mvs_num_points_filtered']} kept ({fdense.num_seeds} seeds), "
+        f"largest cell group {fm['mvs_filter_max_cell_group']}; the filter's "
+        f"sweep: {f_seen['launches']} K2 launch(es), {f_seen['samples']} samples "
+        f"({seen['incidences']} visible hits); keep mask equal to the host "
+        f"oracle's (oracle {seen['oracle_s']:.2f} s on the host); |c|-1 median "
+        f"{med:.2e} p90 {p90:.2e}; n.c > 0 share {outward:.4f}; wall "
+        f"{f_wall:.4f} s (unfiltered {mvs_wall:.4f} s); timers "
+        + json.dumps({k: round(v, 4) for k, v in fdense.timers.times.items()}))
+    check(f_seen["launches"] == 1, "the filter's sweep is one K2 launch")
+    check(sample_normalized_patches.launches == launches_mvs + 1
+          and sample_normalized_patches_sharded.launches == launches_mvs + 1,
+          "filtered MVS: the unfiltered run's K2 launches plus the filter's")
+    check(fm["mvs_num_points"] == dense.num_points, "filter changed the rounds")
+    check(fdense.num_points == fm["mvs_num_points"] - fm["mvs_filtered_out"],
+          "filtered count")
+    check(fdense.num_points > 10000 and med < 0.02 and p90 < 0.06
+          and outward > 0.9, "filtered cloud on the sphere")
+    check(np.array_equal(fdense.points, f_first.points),
+          "two filtered runs differ")
+
+    # --- 16. kill and resume; the CLI's stage files --------------------------
+    with tempfile.TemporaryDirectory() as ck:
+        resumed, r_wall, state_bytes = run_killed_and_resumed(images, recon, ck)
+    same = all(np.array_equal(getattr(resumed, f), getattr(dense, f))
+               for f in ("points", "colors", "normals", "scores", "refs"))
+    log(f"MVS killed after 2 rounds and resumed (round "
+        f"{resumed.metrics.values['mvs_resumed_at_round']}): "
+        f"{resumed.num_points} points, bit-identical to the uninterrupted "
+        f"run: {same}; state file {state_bytes / 1e6:.1f} MB; resumed run "
+        f"wall {r_wall:.4f} s (uninterrupted, no saves {mvs_wall:.4f} s)")
+    check(same and resumed.num_seeds == dense.num_seeds,
+          "resumed cloud differs from the uninterrupted one")
+    if have_pil:
+        ck = os.path.join(tmp_cli.name, "ckpt")
+        outs = [os.path.join(tmp_cli.name, f"out_ck{i}") for i in (0, 1)]
+        base = ["-img_p", ds, "-par_p", par, "-t", "png", "--checkpoint_dir", ck]
+        t0 = time.perf_counter()
+        rc = cli_main(base + ["--out_dir", outs[0]])
+        ck_wall = time.perf_counter() - t0
+        check(rc == 0, f"CLI --checkpoint_dir exit code {rc}")
+        check(sorted(os.listdir(ck)) == ["ba.npz", "sfm.npz"],
+              f"checkpoint files {os.listdir(ck)}")
+        t0 = time.perf_counter()
+        rc = cli_main(base + ["--out_dir", outs[1], "--stages", "mvs"])
+        mvs_only_wall = time.perf_counter() - t0
+        check(rc == 0, f"CLI --stages mvs exit code {rc}")
+        a, b = (read_ply(os.path.join(o, "all_patches.ply")) for o in outs)
+        check(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]),
+              "--stages mvs from the files gave another cloud")
+        dmed, dp90, _ = dense_bounds(a[0].astype("float64"), a[0].astype("float64"))
+        check(a[0].shape[0] > 10000 and dmed < 0.02 and dp90 < 0.06,
+              "CLI --checkpoint_dir dense cloud on the sphere")
+        log(f"CLI --checkpoint_dir in {ck_wall:.2f} s (sfm.npz, ba.npz), then "
+            f"--stages mvs alone from the files in {mvs_only_wall:.2f} s: "
+            f"{b[0].shape[0]} dense points, the same cloud")
     tmp_cli.cleanup()
+
+    # --- 17. joint bundle adjustment, both camera solvers --------------------
+    joint = {}
+    for solver, max_cams in (("dense_schur", 256), ("pcg", 0)):
+        jrec, jinfo, j_before, j_wall = run_joint_ba(sparse4, max_cams)
+        check(jinfo["camera_solver"] == solver, f"solver {jinfo['camera_solver']}")
+        med, p95 = sphere_bounds(jrec.world)
+        joint[solver] = {
+            "iterations": jinfo["iterations"], "final_cost": jinfo["final_cost"],
+            "rms_before_px": j_before,
+            "rms_refined_px": jinfo["rms_reproj_refined_px"],
+            "rms_vs_calibration_px": jrec.rms_reprojection_error(),
+            "sphere_median": med, "sphere_p95": p95, "wall_s": j_wall,
+            "solve_s": jinfo["timers"]["solve"]}
+        log(f"joint BA (f32, {solver}): " + json.dumps(joint[solver]))
+        check(jinfo["iterations"] >= 1 and jinfo["cams11"].shape == (N_FRAMES, 12),
+              "joint BA ran")
+        check(jinfo["rms_reproj_refined_px"] < j_before,
+              "joint BA did not lower the rms")
+        check(jinfo["rms_reproj_refined_px"] <= info["rms_reproj_refined_px"] + 1e-4,
+              "joint optimum above the points-only one")
+        check(med < 0.01 and p95 < 0.05, f"joint BA sphere bounds {med} {p95}")
+    gap = abs(joint["dense_schur"]["rms_refined_px"] - joint["pcg"]["rms_refined_px"])
+    log(f"joint BA: dense and PCG refined rms differ by {gap:.2e} px")
+    check(gap <= 1e-3, f"dense and PCG rms differ by {gap} px > 1e-3")
     log(f"stage walls at {SHARDS} virtual shards on {smi}: " + json.dumps({
         "sfm_s": sh["sfm_s"], "ba_s": sh["ba_s"], "mvs_s": sh["mvs_s"],
         "sfm_unsharded_s": wall, "ba_unsharded_s": ba_wall,
@@ -840,22 +1255,32 @@ def main() -> int:
         name: {k: w[k] for k in ("sfm_s", "ba_s", "mvs_s", "sfm_pair_geometry_s")}
         for name, w in walls.items()}))
 
+    n_px = gray.numel()
     kernels = [
         {"name": "harris_response", "route": "cuda",
          "source": "sfm_tpu_torch/csrc/harris.cu",
          "replaces": "sfm_tpu/ops/harris.py:79",
          "launches": launches["harris_response"],
          "max_abs_err": k1["max_abs_err"], "ms": t["k1"], "plain_ms": t["k1_plain"],
-         "shape": list(gray.shape)},
+         # f32 in, f32 out; ~55 operations per pixel (two Sobels, three
+         # products, three 3x3 box sums, det - k trace^2).
+         **bound(2 * 4 * n_px, 55 * n_px), "library_ms": None,
+         "kernel_only_ms": kernel_only["k1"], "shape": list(gray.shape)},
         {"name": "sample_normalized_patches", "route": "cuda",
          "source": "sfm_tpu_torch/csrc/gather.cu",
          "replaces": "sfm_tpu/ops/gather.py:112",
          "launches": launches["sample_normalized_patches"],
          "max_abs_err": max(k2.values()), "ms": t["k2_int"],
-         "plain_ms": t["k2_int_plain"], "samples": img_i.numel(),
+         "plain_ms": t["k2_int_plain"], **gather_bound(gray_bf16, img_i.numel()),
+         "library_ms": None, "kernel_only_ms": kernel_only["k2_int"],
+         "samples": img_i.numel(),
          "ms_fractional": t["k2_frac"], "plain_ms_fractional": t["k2_frac_plain"],
+         "bound_ms_fractional": gather_bound(gray_bf16, img_f.numel())["bound_ms"],
+         "kernel_only_ms_fractional": kernel_only["k2_frac"],
          "samples_fractional": img_f.numel(),
          "launches_mvs": launches_mvs,
+         "launches_filter": f_seen["launches"],
+         "samples_filter": f_seen["samples"],
          "mvs_share": prof["k2_ms"] / 1e3 / prof["wall_s"],
          "max_abs_err_mvs_round": k2_round["max_abs_err"]},
         {"name": "sample_normalized_patches_sharded", "route": "cuda",
@@ -866,7 +1291,20 @@ def main() -> int:
          "max_abs_err": k2s["max_abs_err"],
          "max_abs_err_plain": k2s["max_abs_err_plain"],
          "ms": k2s["ms"], "single_call_ms": k2s["single_call_ms"],
-         "plain_ms": t["k2_frac_plain"], "samples": img_f.numel()},
+         "plain_ms": t["k2_frac_plain"], **gather_bound(gray_bf16, img_f.numel()),
+         "library_ms": None, "samples": img_f.numel()},
+        {"name": "sample_normalized_patches_tiled", "route": "cuda",
+         "source": "sfm_tpu_torch/csrc/gather_tile.cu",
+         "replaces": "tools/prof_tile.py:207",
+         "launches": k3_launches,
+         "max_abs_err": k3["max_abs_err"], "bit_equal_k2": k3["bit_equal_k2"],
+         "ms": k3_t["ms"], "plain_ms": k3_t["plain_ms"],
+         **gather_bound(tg, ti.numel()), "library_ms": None,
+         "kernel_only_ms": k3_t["kernel_only_ms"],
+         "k2_same_inputs_ms": k3_t["k2_same_inputs_ms"],
+         "k2_same_inputs_kernel_only_ms": k3_t["k2_kernel_only_ms"],
+         "samples": ti.numel(), "ms_by_mode": k3_modes,
+         "kernel_only_ms_by_mode": k3_modes_kernel_only},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,9 @@ are replicated.  The JAX package runs its whole LM loop inside
 ``ba/solver.py`` takes the mesh and sums each shard's partials with
 ``mesh.psum``.
 
-Points-only (``optimize_cameras=False``), as the single-device solver; the
-joint solve raises NotImplementedError (ROADMAP queue 1 item 10).
+The joint solve's dense reduced camera system needs every observation of
+a point on one shard (its same-point pairs are then local, and the shards'
+partial S's sum to the exact S): ``shard_problem(track_aligned=True)``.
 """
 
 from __future__ import annotations
@@ -78,8 +79,13 @@ def shard_problem(
 
 def solve_lm_sharded(problem: BAProblem, mesh, **solve_kw):
     """``solve_lm`` over ``mesh`` (a ``parallel.DataMesh``), the
-    observations padded by ``shard_problem`` to split evenly (as
-    ``sfm_tpu`` cuts them for the points-only solve); ``problem`` lies on
-    the lead device.  Takes ``solve_lm``'s keywords; its default
-    ``optimize_cameras=True`` raises NotImplementedError."""
-    return solve_lm(shard_problem(problem, mesh.size), mesh=mesh, **solve_kw)
+    observations padded by ``shard_problem`` to split evenly, as ``sfm_tpu``
+    cuts them: at track boundaries for the dense joint solve
+    (``optimize_cameras`` and ``pair_span > 0``), anywhere otherwise.
+    ``problem`` lies on the lead device.  Takes ``solve_lm``'s keywords."""
+    dense = (solve_kw.get("optimize_cameras", True)
+             and solve_kw.get("pair_span", 0) > 0)
+    return solve_lm(
+        shard_problem(problem, mesh.size, track_aligned=dense), mesh=mesh,
+        **solve_kw,
+    )

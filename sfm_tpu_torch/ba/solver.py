@@ -1,27 +1,33 @@
-"""Levenberg-Marquardt bundle adjustment, points-only.
+"""Levenberg-Marquardt bundle adjustment with a Schur complement.
 
-Counterpart of ``sfm_tpu/ba/solver.py`` with ``optimize_cameras=False``
-(the default of ``bundle_adjust``): with cameras frozen the normal
-equations decouple into one 3x3 block per point, V_p dp = b_p, so each LM
-step is a batched closed-form 3x3 solve.  The JAX package's
-``lax.while_loop`` is a host loop here; accept/reject, damping and the stop
-rules are the same expressions.
+Counterpart of ``sfm_tpu/ba/solver.py``.  Block normal equations from exact
+per-observation Jacobians (``ba/model.py``): U (camera 12x12 blocks), V
+(point 3x3 blocks), W (per-observation 12x3 coupling).  With cameras frozen
+(``optimize_cameras=False``, the default of ``bundle_adjust``) the system
+decouples into one 3x3 block per point, V_p dp = b_p.  The joint solve
+eliminates the points and solves the reduced camera system
+S = U_l - sum_p W_p V_lp^-1 W_p^T either matrix-free by block-Jacobi
+preconditioned conjugate gradients (``_pcg``: each S x is three segment
+passes over the observations) or, for small camera counts, by dense
+assembly and a Cholesky factorisation (``_dense_schur_dc``), then
+back-substitutes the points.  The JAX package's ``lax.while_loop``s are host
+loops here; accept/reject, damping and the stop rules are the same
+expressions.
 
-V and b_p are sums over each point's observations.  ``segment_sum`` would
+Every sum over observations runs in a fixed order: ``segment_sum`` would
 become ``index_add_``, whose float atomics on CUDA sum in a different order
-on every run; instead each point's observations are gathered into a
-(T, L) slot table (L = the longest track) and summed along L, a fixed
-order on every device and run.
+on every run, and these sums feed the accept comparison.  Instead each
+point's (camera's) observations are gathered into a slot table (one row per
+segment, as wide as the longest) and summed along it.
 
 Over a mesh (``parallel.DataMesh``) the observations are split over the
 shards and the partial sums added in shard order (``solve_lm(mesh=)``); a
 solve without a mesh is the same loop on a mesh of one device.
-
-Joint BA (``optimize_cameras=True``: the reduced camera system by PCG or a
-dense Schur solve) is not ported yet (ROADMAP queue 1 item 10) and raises.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -31,55 +37,221 @@ from sfm_tpu_torch.geometry.linalg3 import inv3
 from sfm_tpu_torch.parallel.mesh import DataMesh
 
 _OBS_FIELDS = ("cam_idx", "point_idx", "obs_2d", "mask")
-_JOINT_BA = ("joint BA (optimize_cameras / refine_cameras) is not ported "
-             "to sfm_tpu_torch yet (ROADMAP queue 1 item 10)")
 
 
-def _point_segments(problem: BAProblem) -> torch.Tensor:
-    """(T, L) int64 table: row p lists point p's unmasked observations in
-    observation order; empty slots hold O, the index of a zero row the
-    caller appends.  Built once per solve (one host sync for L)."""
-    pid = problem.point_idx.long()
-    n_obs = pid.shape[0]
-    n_pts = problem.points.shape[0]
-    key = torch.where(problem.mask, pid, torch.full_like(pid, n_pts))
+def _segments(idx: torch.Tensor, mask: torch.Tensor, n_seg: int) -> torch.Tensor:
+    """(n_seg, L) int64 slot table: row s lists the unmasked entries with
+    ``idx == s`` in their order; empty slots hold O = ``idx.shape[0]``, the
+    index of a zero row the caller appends.  Built once per solve (one host
+    sync for L)."""
+    idx = idx.long()
+    n = idx.shape[0]
+    key = torch.where(mask, idx, torch.full_like(idx, n_seg))
     order = torch.argsort(key, stable=True)
-    counts = torch.bincount(key, minlength=n_pts + 1)[:n_pts]
+    counts = torch.bincount(key, minlength=n_seg + 1)[:n_seg]
     n_valid = int(counts.sum())
-    width = max(int(counts.max()) if n_pts else 0, 1)
+    width = max(int(counts.max()) if n_seg else 0, 1)
     starts = torch.cumsum(counts, 0) - counts
     order = order[:n_valid]
     seg = key[order]
-    slot = torch.arange(n_valid, device=pid.device) - starts[seg]
-    table = torch.full((n_pts, width), n_obs, dtype=torch.long, device=pid.device)
+    slot = torch.arange(n_valid, device=idx.device) - starts[seg]
+    table = torch.full((n_seg, width), n, dtype=torch.long, device=idx.device)
     table[seg, slot] = order
     return table
 
 
+def _point_segments(problem: BAProblem) -> torch.Tensor:
+    """The (T, L) table of each point's observations."""
+    return _segments(problem.point_idx, problem.mask, problem.points.shape[0])
+
+
+def _camera_segments(problem: BAProblem) -> torch.Tensor:
+    """The (N, L) table of each camera's observations."""
+    return _segments(problem.cam_idx, problem.mask, problem.cams.shape[0])
+
+
 def _segment_sum(values, table):
-    """Sum (O, ...) rows into (T, ...) by the slot table (fixed order)."""
+    """Sum (O, ...) rows into (S, ...) by the slot table (fixed order)."""
     pad = torch.zeros_like(values[:1])
     return torch.cat([values, pad])[table].sum(dim=1)
 
 
-def _assemble(problem: BAProblem, cams, points, table):
-    """The point blocks of the normal equations: V (T, 3, 3) = sum Jp^T Jp
-    and b_p (T, 3) = -sum Jp^T r over each point's observations.  (The
-    JAX package's camera blocks U, W, b_c feed only the joint solve.)"""
-    _, Jp, r = jacobian_blocks(
+class _Tables(NamedTuple):
+    """A shard's fixed-order summation structure, built once per solve."""
+
+    point: torch.Tensor                 # (T, L) slot table
+    cam: torch.Tensor = None            # (N, Lc) slot table (joint solve)
+    pairs: tuple = None                 # dense solve: see _pair_structure
+
+
+class _Blocks(NamedTuple):
+    V: torch.Tensor                     # (T, 3, 3), summed over the mesh
+    b_p: torch.Tensor                   # (T, 3)
+    U: torch.Tensor = None              # (N, 12, 12)
+    b_c: torch.Tensor = None            # (N, 12)
+    W: tuple = ()                       # per shard (O_s, 12, 3)
+
+
+def _assemble_shard(problem: BAProblem, cams, points, tables, joint: bool):
+    """One shard's partial blocks: V (T, 3, 3) = sum Jp^T Jp and b_p (T, 3)
+    = -sum Jp^T r over each point's observations and, for the joint solve,
+    U (N, 12, 12) = sum Jc^T Jc, b_c (N, 12) = -sum Jc^T r over each
+    camera's, with the per-observation coupling W = Jc^T Jp."""
+    Jc, Jp, r = jacobian_blocks(
         cams, points, problem.cam_idx, problem.point_idx, problem.obs_2d,
         problem.mask,
     )
-    VtV = torch.einsum("oki,okj->oij", Jp, Jp)
-    V = _segment_sum(VtV, table)
-    b_p = -_segment_sum(torch.einsum("oki,ok->oi", Jp, r), table)
-    return V, b_p
+    V = _segment_sum(torch.einsum("oki,okj->oij", Jp, Jp), tables.point)
+    b_p = -_segment_sum(torch.einsum("oki,ok->oi", Jp, r), tables.point)
+    if not joint:
+        return V, b_p
+    U = _segment_sum(torch.einsum("oki,okj->oij", Jc, Jc), tables.cam)
+    b_c = -_segment_sum(torch.einsum("oki,ok->oi", Jc, r), tables.cam)
+    W = torch.einsum("oki,okj->oij", Jc, Jp)
+    return V, b_p, U, b_c, W
+
+
+def _assemble(mesh, shards, cams_r, points_r, tables, joint: bool) -> _Blocks:
+    """The normal-equation blocks, each shard's partials summed with
+    ``mesh.psum`` in shard order (W stays per shard)."""
+    parts = [_assemble_shard(sp, c, p, tab, joint)
+             for sp, c, p, tab in zip(shards, cams_r, points_r, tables)]
+    summed = [mesh.psum([part[i] for part in parts]) for i in range(4 if joint else 2)]
+    W = tuple(part[4] for part in parts) if joint else ()
+    return _Blocks(*summed, W=W)
 
 
 def _damp_diag(M, lam, eps=1e-8):
     """Marquardt damping: M + diag(lam*diag(M) + eps)."""
     d = torch.diagonal(M, dim1=-2, dim2=-1)
     return M + torch.diag_embed(lam * d + eps)
+
+
+def _to_cameras(mesh, shards, tables, W, per_point):
+    """sum over observations of W_o v[point(o)] into cameras: (N, 12).
+    ``per_point`` is a (T, 3) tensor on the lead device."""
+    vs = mesh.replicate(per_point)
+    return mesh.psum([
+        _segment_sum(torch.einsum("oij,oj->oi", w, v[sp.point_idx.long()]),
+                     tab.cam)
+        for sp, tab, w, v in zip(shards, tables, W, vs)
+    ])
+
+
+def _to_points(mesh, shards, tables, W, per_cam):
+    """sum over observations of W_o^T x[camera(o)] into points: (T, 3).
+    ``per_cam`` is an (N, 12) tensor on the lead device."""
+    xs = mesh.replicate(per_cam)
+    return mesh.psum([
+        _segment_sum(torch.einsum("oij,oi->oj", w, x[sp.cam_idx.long()]),
+                     tab.point)
+        for sp, tab, w, x in zip(shards, tables, W, xs)
+    ])
+
+
+def _schur_matvec(x, mesh, shards, tables, blocks, U_lam, Vinv):
+    """S x for the reduced camera system, matrix-free over observations:
+    S = U_l - sum_p W_p V_lp^-1 W_p^T, three segment passes (over a mesh:
+    two psums)."""
+    Ux = torch.einsum("nij,nj->ni", U_lam, x)
+    a_p = _to_points(mesh, shards, tables, blocks.W, x)           # (T, 3)
+    b_vp = torch.einsum("pij,pj->pi", Vinv, a_p)
+    return Ux - _to_cameras(mesh, shards, tables, blocks.W, b_vp)
+
+
+def _pcg(matvec, b, Minv_blocks, iters: int, tol: float):
+    """Block-Jacobi preconditioned CG for the (N, 12) camera system: the
+    loop of ``sfm_tpu.ba.solver._pcg`` with the same stopping rule, one
+    host sync per iteration (the residual test)."""
+
+    def apply_prec(r):
+        return torch.einsum("nij,nj->ni", Minv_blocks, r)
+
+    x = torch.zeros_like(b)
+    r = b
+    z = apply_prec(r)
+    p = z
+    rz = torch.sum(r * z)
+    bnorm = torch.sqrt(torch.sum(b * b)) + 1e-30
+    it = 0
+    while it < iters and bool(torch.sqrt(torch.sum(r * r)) > tol * bnorm):
+        Ap = matvec(p)
+        alpha = rz / torch.clamp_min(torch.sum(p * Ap), 1e-30)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = apply_prec(r)
+        rz_new = torch.sum(r * z)
+        beta = rz_new / torch.clamp_min(rz, 1e-30)
+        p = z + beta * p
+        rz = rz_new
+        it += 1
+    return x
+
+
+def _pair_structure(problem: BAProblem, point_table: torch.Tensor):
+    """Same-point observation pairs of one shard, for the dense assembly
+    of S: every ordered pair (o_i, o_j) of observations of one point,
+    sorted (stably) by the camera block (cam(o_i), cam(o_j)) it adds to.
+
+    Returns (oi, oj, pt (P,) indices; lengths (B,) pairs per block;
+    bi, bj (B,) the blocks' camera indices).  O(observations x track
+    length) entries; built once per solve.
+    """
+    n_obs = problem.cam_idx.shape[0]
+    n_cams = problem.cams.shape[0]
+    live = point_table < n_obs                                   # (T, L)
+    pt, i, j = torch.nonzero(live[:, :, None] & live[:, None, :], as_tuple=True)
+    oi, oj = point_table[pt, i], point_table[pt, j]
+    cam = problem.cam_idx.long()
+    key = cam[oi] * n_cams + cam[oj]
+    order = torch.argsort(key, stable=True)
+    blocks, lengths = torch.unique_consecutive(key[order], return_counts=True)
+    return (oi[order], oj[order], pt[order], lengths,
+            blocks // n_cams, blocks % n_cams)
+
+
+def _dense_schur_dc(mesh, shards, tables, blocks, U_lam, Vinv, g):
+    """Solve the reduced camera system S dc = g by dense assembly and a
+    Cholesky factorisation.
+
+    S = U_l - sum_p W_p V_lp^-1 W_p^T is assembled over same-point
+    observation pairs (``_pair_structure``): pair (o_i, o_j) of point p adds
+    W_oi V_lp^-1 W_oj^T to block (cam(o_i), cam(o_j)).  The pairs are
+    sorted by block and summed per block in that fixed order
+    (``torch.segment_reduce``: one thread walks a segment), O(observations
+    x track length) in time and memory.  (The JAX package scatters W into
+    (T, Nc, 12, 3) grids and contracts the point axis with one matrix
+    product, O(points x cameras); that layout is not carried over.)  Over a
+    mesh each shard must hold every observation of its points
+    (``ba.sharded.shard_problem(track_aligned=True)``), so its pairs are
+    local and the per-shard partial S's psum into the exact S.
+
+    Jacobi scaling keeps the factorisation conditioned; cameras with no
+    observations have ~eps diagonals from the damping and scale to identity
+    rows.  A failed factorisation (S not positive definite under extreme
+    rounding) gives a NaN step, which LM rejects and answers with more
+    damping, as NaNs do in the JAX package.
+    """
+    n_cams = U_lam.shape[0]
+    parts = []
+    for tab, w, vinv in zip(tables, blocks.W, mesh.replicate(Vinv)):
+        oi, oj, pt, lengths, bi, bj = tab.pairs
+        pair = torch.einsum("kab,kbc,kdc->kad", w[oi], vinv[pt], w[oj])
+        summed = torch.segment_reduce(
+            pair.reshape(-1, 144), "sum", lengths=lengths, unsafe=True
+        )
+        S4 = pair.new_zeros((n_cams, 12, n_cams, 12))
+        S4[bi, :, bj, :] = -summed.reshape(-1, 12, 12)
+        parts.append(S4)
+    S4 = mesh.psum(parts)
+    ii = torch.arange(n_cams, device=S4.device)
+    S4[ii, :, ii, :] += U_lam
+    S2 = S4.reshape(12 * n_cams, 12 * n_cams)
+    dsc = 1.0 / torch.sqrt(torch.clamp_min(torch.diagonal(S2), 1e-12))
+    L, info = torch.linalg.cholesky_ex(S2 * dsc[:, None] * dsc[None, :])
+    y = torch.cholesky_solve((g.reshape(-1) * dsc)[:, None], L)[:, 0]
+    dc = (y * dsc).reshape(n_cams, 12)
+    return torch.where(info == 0, dc, torch.full_like(dc, float("nan")))
 
 
 def solve_lm(
@@ -90,27 +262,36 @@ def solve_lm(
     lambda_up: float = 4.0,
     lambda_down: float = 0.5,
     optimize_cameras: bool = True,
+    cg_iters: int = 100,
+    cg_tol: float = 1e-6,
+    pair_span: int = 0,
     mesh=None,
 ):
     """Run LM; returns (cams, points, final_cost 0-dim tensor, iterations
     int).  The loop of ``sfm_tpu.ba.solver._lm_impl``, with one host sync
-    per iteration (accept and the stop test together).
+    per iteration (accept and the stop test together; the PCG camera solve
+    adds one per CG iteration).
+
+    ``optimize_cameras=False`` freezes the cameras in the solve itself (no
+    reduced system at all).  ``pair_span > 0`` selects the dense reduced
+    camera system (``_dense_schur_dc``) over matrix-free PCG; as in
+    ``sfm_tpu`` only its sign is read.
 
     ``mesh`` (a ``parallel.DataMesh`` whose lead device holds ``problem``;
     by default a mesh of that one device) splits the observations evenly
-    over its shards: each shard sums its partial V, b_p and cost over its
+    over its shards: each shard sums its partial blocks and cost over its
     own observations on its own device, with its own fixed-order slot
-    table; ``mesh.psum`` adds the partials in shard order (where
-    ``sfm_tpu`` has ``psum``); the 3x3 solves and accept/reject run once on
-    the lead device, and the new points go back to the shards.
+    tables; ``mesh.psum`` adds the partials in shard order (where
+    ``sfm_tpu`` has ``psum``); the solves and accept/reject run once on the
+    lead device, and the new parameters go back to the shards.  The dense
+    solve needs shards cut at track boundaries
+    (``ba.sharded.solve_lm_sharded`` does that).
 
-    Same defaults as ``sfm_tpu.ba.solver.solve_lm``; only
-    ``optimize_cameras=False`` (cameras frozen in the solve) is ported, the
-    joint solve raises NotImplementedError.
+    Same defaults as ``sfm_tpu.ba.solver.solve_lm``.
     """
-    if optimize_cameras:
-        raise NotImplementedError(_JOINT_BA)
     cams, points = problem.cams, problem.points
+    joint = bool(optimize_cameras)
+    dense = joint and pair_span > 0
     mesh = mesh or DataMesh([points.device])
     # Pad rows of the split are index 0 with mask False: inert.
     obs = [mesh.split(getattr(problem, f)) for f in _OBS_FIELDS]
@@ -120,28 +301,54 @@ def solve_lm(
         for c, p, ci, pi, o2, mk in zip(
             mesh.replicate(cams), mesh.replicate(points), *obs)
     ]
-    tables = [_point_segments(sp) for sp in shards]
+    tables = []
+    for sp in shards:
+        point = _point_segments(sp)
+        tables.append(_Tables(
+            point=point,
+            cam=_camera_segments(sp) if joint else None,
+            pairs=_pair_structure(sp, point) if dense else None,
+        ))
 
-    def cost_of(points_r):
+    def cost_of(cams_r, points_r):
         return mesh.psum([
-            total_cost(sp.cams, p, sp.cam_idx, sp.point_idx, sp.obs_2d, sp.mask)
-            for sp, p in zip(shards, points_r)
+            total_cost(c, p, sp.cam_idx, sp.point_idx, sp.obs_2d, sp.mask)
+            for sp, c, p in zip(shards, cams_r, points_r)
         ])
 
-    points_r = mesh.replicate(points)
+    cams_r, points_r = mesh.replicate(cams), mesh.replicate(points)
     lam = torch.tensor(init_lambda, dtype=cams.dtype, device=cams.device)
-    cost = cost_of(points_r)
+    cost = cost_of(cams_r, points_r)
     iteration = 0
     done = False
     while not done and iteration < max_iterations:
-        parts = [_assemble(sp, sp.cams, p, tab)
-                 for sp, p, tab in zip(shards, points_r, tables)]
-        V = mesh.psum([v for v, _ in parts])
-        b_p = mesh.psum([b for _, b in parts])
-        Vinv = inv3(_damp_diag(V, lam))
-        new_points = points + torch.einsum("pij,pj->pi", Vinv, b_p)
-        new_r = mesh.replicate(new_points)
-        new_cost = cost_of(new_r)
+        blocks = _assemble(mesh, shards, cams_r, points_r, tables, joint)
+        Vinv = inv3(_damp_diag(blocks.V, lam))
+        if joint:
+            U_lam = _damp_diag(blocks.U, lam)
+            # Schur right-hand side: g = b_c - W V^-1 b_p.
+            vb = torch.einsum("pij,pj->pi", Vinv, blocks.b_p)
+            g = blocks.b_c - _to_cameras(mesh, shards, tables, blocks.W, vb)
+            if dense:
+                dc = _dense_schur_dc(mesh, shards, tables, blocks, U_lam,
+                                     Vinv, g)
+            else:
+                dc = _pcg(
+                    lambda x: _schur_matvec(x, mesh, shards, tables, blocks,
+                                            U_lam, Vinv),
+                    g, torch.linalg.inv(U_lam), cg_iters, cg_tol,
+                )
+            # Back-substitute the points: dp = V^-1 (b_p - W^T dc).
+            wtd = _to_points(mesh, shards, tables, blocks.W, dc)
+            dp = torch.einsum("pij,pj->pi", Vinv, blocks.b_p - wtd)
+            new_cams = cams + dc
+        else:
+            dp = torch.einsum("pij,pj->pi", Vinv, blocks.b_p)
+            new_cams = cams
+        new_points = points + dp
+        new_cr = mesh.replicate(new_cams) if joint else cams_r
+        new_pr = mesh.replicate(new_points)
+        new_cost = cost_of(new_cr, new_pr)
         accept = new_cost < cost
         rel_decrease = (cost - new_cost) / torch.clamp_min(cost, 1e-30)
         # The lambda test reads the damping this step used, as in sfm_tpu.
@@ -151,5 +358,6 @@ def solve_lm(
         iteration += 1
         accepted, done = torch.stack([accept, stop]).tolist()
         if accepted:
-            points, points_r = new_points, new_r
+            cams, cams_r = new_cams, new_cr
+            points, points_r = new_points, new_pr
     return cams, points, cost, iteration

@@ -3,8 +3,13 @@
 Takes the same flags (plus ``--device``) and runs the same stages: ``sfm``
 writes ``sparse_points.ply``, ``ba`` (points-only bundle adjustment)
 ``sparse_points_ba.ply``, ``mvs`` ``initial_patches.ply`` and
-``all_patches.ply``, and the summary JSON has the same keys.  Flags whose
-machinery is not ported yet (``NOT_PORTED``) exit with code 2.
+``all_patches.ply``, and the summary JSON has the same keys.
+``--refine_cameras`` runs joint bundle adjustment, ``--enable_outlier_filter``
+the MVS outlier filter, and ``--checkpoint_dir`` saves each stage's output
+there (``sfm.npz``, ``ba.npz``: the JAX package's files, readable by either
+package) plus the mid-MVS state every ``--mvs_checkpoint_every`` rounds, so
+``--stages ba,mvs`` or ``--stages mvs`` resume from them.  Flags whose
+machinery is not ported (``NOT_PORTED``) exit with code 2.
 ``--mesh_devices N`` (N > 1) runs every stage over one mesh of up to N
 devices of ``--device``'s kind (``run_mesh``); N <= 1 is a plain
 single-device run, as in ``sfm_tpu``.
@@ -21,10 +26,9 @@ import os
 import sys
 
 STAGES = ("sfm", "ba", "mvs")
-# Flags of sfm_tpu/cli.py whose machinery is not ported yet (ROADMAP queue 1
-# items 10-13): each exits 2 instead of running the default path.
-NOT_PORTED = ("refine_cameras", "enable_outlier_filter", "checkpoint_dir",
-              "plot", "debug", "profile_dir")
+# Flags of sfm_tpu/cli.py whose machinery is not ported (ROADMAP queue 1
+# item 13): each exits 2 instead of running the default path.
+NOT_PORTED = ("plot", "debug", "profile_dir")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -176,6 +180,7 @@ def _main(argv=None) -> int:
 
     from sfm_tpu_torch.io import load_images, read_pars
     from sfm_tpu_torch.io.ply import export_ply
+    from sfm_tpu_torch.utils import checkpoint as ckpt
     from sfm_tpu_torch.utils.metrics import StageTimer
 
     timers = StageTimer()
@@ -190,10 +195,17 @@ def _main(argv=None) -> int:
     recon = None
     summary = {}
     if "sfm" in stages:
-        from sfm_tpu_torch.sfm import structure_from_motion
+        recon = ckpt.try_resume(args.checkpoint_dir, "sfm")
+        if recon is not None:
+            print("resumed sparse reconstruction from checkpoint")
+        else:
+            from sfm_tpu_torch.sfm import structure_from_motion
 
-        with timers.stage("sfm"):
-            recon = structure_from_motion(images, calib, config, mesh=mesh)
+            with timers.stage("sfm"):
+                recon = structure_from_motion(images, calib, config, mesh=mesh)
+            if args.checkpoint_dir:
+                ckpt.save_sparse(ckpt.stage_path(args.checkpoint_dir, "sfm"),
+                                 recon)
         mean_reproj = recon.mean_reprojection_error()
         print(f"sparse: {recon.num_tracks} tracks, "
               f"{recon.num_observations} observations, "
@@ -202,15 +214,13 @@ def _main(argv=None) -> int:
         summary["sparse_tracks"] = recon.num_tracks
         summary["sparse_mean_reproj_px"] = mean_reproj
 
-    if "ba" in stages or "mvs" in stages:
-        if recon is None:
-            # sfm_tpu resumes from a checkpoint here; checkpoints are not
-            # ported yet.
-            print("error: BA/MVS requested but no sparse reconstruction "
-                  "(run the sfm stage too)", file=sys.stderr)
-            return 2
-
     if "ba" in stages:
+        if recon is None:
+            recon = ckpt.try_resume(args.checkpoint_dir, "sfm")
+            if recon is None:
+                print("error: BA requested but no sparse reconstruction",
+                      file=sys.stderr)
+                return 2
         from sfm_tpu_torch.ba import bundle_adjust
 
         with timers.stage("ba"):
@@ -219,18 +229,32 @@ def _main(argv=None) -> int:
         ba_rms = recon.rms_reprojection_error()
         print(f"ba: cost {info['final_cost']:.4g} after {info['iterations']} "
               f"iterations; rms reproj {ba_rms:.3f}px")
+        if args.checkpoint_dir:
+            ckpt.save_sparse(ckpt.stage_path(args.checkpoint_dir, "ba"), recon)
         recon.export_ply(os.path.join(args.out_dir, "sparse_points_ba.ply"))
         summary["ba_final_cost"] = info["final_cost"]
         summary["ba_rms_reproj_px"] = ba_rms
 
     if "mvs" in stages:
+        if recon is None:
+            recon = (ckpt.try_resume(args.checkpoint_dir, "ba")
+                     or ckpt.try_resume(args.checkpoint_dir, "sfm"))
+            if recon is None:
+                print("error: MVS requested but no reconstruction",
+                      file=sys.stderr)
+                return 2
         from sfm_tpu_torch.mvs import dense_reconstruction
 
         with timers.stage("mvs"):
             dense = dense_reconstruction(
                 images, recon.calib, recon, config.mvs, scale=args.scale,
-                mesh=mesh, device=device, kernels=config.runtime.kernels,
+                mesh=mesh, checkpoint_dir=args.checkpoint_dir,
+                checkpoint_every=args.mvs_checkpoint_every,
+                device=device, kernels=config.runtime.kernels,
             )
+        if dense.metrics.values.get("mvs_resumed_at_round"):
+            print("resumed MVS expansion from round "
+                  f"{dense.metrics.values['mvs_resumed_at_round']}")
         print(f"mvs: {dense.num_seeds} seeds -> {dense.num_points} points "
               f"in {dense.metrics.values['mvs_rounds']} rounds")
         export_ply(

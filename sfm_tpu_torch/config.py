@@ -54,10 +54,13 @@ class SfmConfig:
 
 @dataclass(frozen=True)
 class BaConfig:
-    """Bundle adjustment: points-only Levenberg-Marquardt (ba/).
+    """Bundle adjustment: Levenberg-Marquardt (ba/), points-only by default.
 
-    ``refine_cameras=True`` (joint BA) is not ported yet and raises; the
-    ``dense_schur_*`` fields only steer the joint solve.
+    ``refine_cameras=True`` runs the joint solve; its reduced camera system
+    is solved densely up to ``dense_schur_max_cams`` cameras and by PCG
+    above.  ``dense_schur_max_bytes`` (the JAX package's scatter-grid
+    bound) is read nowhere: the port's dense assembly has no such grids.
+    ``dense_schur_max_span`` is deprecated in both packages.
     """
 
     max_iterations: int = 50
@@ -75,10 +78,7 @@ class BaConfig:
 
 @dataclass(frozen=True)
 class MvsConfig:
-    """Patch-based dense reconstruction (mvs/).
-
-    ``enable_outlier_filter=True`` is not ported yet and raises.
-    """
+    """Patch-based dense reconstruction (mvs/)."""
 
     cell_size: int = 2
     patch_wid: int = 5

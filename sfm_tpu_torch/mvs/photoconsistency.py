@@ -111,13 +111,17 @@ def photo_consistency(
     K, R, t,         # (N, 3, 3), (N, 3, 3), (N, 3) float32 calibration
     centers,         # (M, 3) candidate patch centroids
     ref_idx,         # (M,) int reference image per candidate
-    min_ncc: float,
+    min_ncc,         # float, or (M,) tensor: a threshold per candidate
     wid: int = 5,
     max_views: int = 0,
     kernels=None,
     mesh=None,
 ):
     """Score M candidates against all N views.
+
+    ``min_ncc`` may be a per-candidate (M,) tensor: the outlier filter's
+    recompute scores seeds and expansion patches in one batch, each with its
+    own accept-time threshold.
 
     ``0 < max_views < N`` takes the geometric view gate (``_gated_samples``:
     the sweep runs over M x max_views samples instead of M x N); otherwise
@@ -146,9 +150,13 @@ def photo_consistency(
                for args in zip(Ks, Rs, ts, cs, refs)]
     swept = _sweep(grays, [s[1] for s in samples], [s[2] for s in samples],
                    wid, kernels)
+    if torch.is_tensor(min_ncc) and min_ncc.dim() == 1:
+        thrs = [thr[:, None] for thr in mesh.split(min_ncc)]
+    else:
+        thrs = [min_ncc] * mesh.size
     outs = [
-        _score(d, b, s, ref, min_ncc, wid)
-        for (d, b), s, ref in zip(swept, samples, refs)
+        _score(d, b, s, ref, thr, wid)
+        for (d, b), s, ref, thr in zip(swept, samples, refs, thrs)
     ]
     m = centers.shape[0]
     return tuple(mesh.gather(list(x), m) for x in zip(*outs))
@@ -175,7 +183,8 @@ def _view_samples(K, R, t, centers, ref_idx, h_img: int, w_img: int,
 
 def _score(desc, inb, samples, ref_idx, min_ncc, wid: int):
     """NCC against the reference view's descriptor, the visibility rule
-    and the per-candidate counts, from the sweep of ``_view_samples``."""
+    and the per-candidate counts, from the sweep of ``_view_samples``;
+    ``min_ncc`` is a float or an (M, 1) column."""
     proj, img, _, gate = samples
     m, n_img = proj.shape[0], proj.shape[1]
     side2 = (2 * wid + 1) ** 2

@@ -11,12 +11,18 @@ device, replicates the bf16 stack and the cameras once, seeds unsharded
 (as the JAX package does) and splits every expansion round's candidate
 batch over the shards (``mvs/expand.py``).
 
-Not ported yet, and raising NotImplementedError: ``checkpoint_dir``
-(mid-MVS resume, ROADMAP queue 1 item 12) and ``enable_outlier_filter``
-(item 11).  ``MvsConfig.shape_buckets``,
-``overlap_seed_fetch`` and ``rounds_per_call`` are scheduling knobs of the
-JAX package (compile reuse, hiding a remote link's fetch latency) whose
-output is identical either way; they are read nowhere here.
+With ``checkpoint_dir`` the expansion loop saves its whole state every
+``checkpoint_every`` rounds and resumes from it on the next call
+(``utils/checkpoint.py``: the JAX package's file and array names, its v2
+fingerprint letter for letter); the resumed run's cloud is bit-identical to
+an uninterrupted one.  With ``MvsConfig.enable_outlier_filter`` the
+accumulated cloud is re-scored in one sweep (K2's largest launch) and
+filtered on the device (``mvs/filter.py``).
+
+``MvsConfig.shape_buckets``, ``overlap_seed_fetch`` and ``rounds_per_call``
+are scheduling knobs of the JAX package (compile reuse, hiding a remote
+link's fetch latency) whose output is identical either way; they are read
+nowhere here.
 """
 
 from __future__ import annotations
@@ -36,14 +42,19 @@ from sfm_tpu_torch.config import (
     resolve_photo_views,
 )
 from sfm_tpu_torch.io.calib import Calibration
-from sfm_tpu_torch.io.images import device_gray
-from sfm_tpu_torch.mvs.cells import make_occupancy
+from sfm_tpu_torch.io.images import _cache_key, device_gray
+from sfm_tpu_torch.mvs.cells import grid_shape, make_occupancy
 from sfm_tpu_torch.mvs.expand import _nonzero_static, expansion_round
-from sfm_tpu_torch.mvs.photoconsistency import unpack_patch_payload
+from sfm_tpu_torch.mvs.filter import filter_outliers_device
+from sfm_tpu_torch.mvs.photoconsistency import (
+    photo_consistency,
+    unpack_patch_payload,
+)
 from sfm_tpu_torch.mvs.seed import build_seed_candidates, seed_patches
 from sfm_tpu_torch.ops._launch import use_kernel
 from sfm_tpu_torch.parallel.mesh import DataMesh
 from sfm_tpu_torch.sfm.pipeline import SparseReconstruction
+from sfm_tpu_torch.utils import checkpoint as ckpt
 from sfm_tpu_torch.utils.metrics import Metrics, StageTimer
 
 # The expansion frontier consumes exactly these fields; seed dicts carry
@@ -131,6 +142,94 @@ def _device_split_merge(fr, backlog, cap: int, b_cap: int):
     return front, back
 
 
+_FILTER_G_CAP = 64  # the filter's first neighbour window; escalates
+
+
+def _run_device_filter(
+    mesh, gray, K, R, t, points, normals, scores, refs, n_seeds,
+    h, w, config: MvsConfig, metrics, kernels=None,
+):
+    """Host side of the device outlier filter; returns keep (D,) bool.
+
+    The visibility of the whole accumulated cloud is recomputed in one
+    ``photo_consistency`` sweep (split over ``mesh``'s shards; ``gray``,
+    K, R, t are the per-shard replicas), each patch at its own accept-time
+    threshold: seeds were scored at ``min_ncc_seed``, expansion patches at
+    ``min_ncc_expand``.  ``g_cap`` starts at ``_FILTER_G_CAP`` and escalates when a cell
+    holds more patches (counted, never silently inexact).  keep, the
+    largest cell group and the dropped-hit count reach the host in one
+    copy.
+    """
+    d = points.shape[0]
+    if d == 0:
+        return np.ones(0, bool)
+    dev = mesh.lead
+    n_img = gray[0].shape[0]
+    gw, gh = grid_shape(h, w, config.cell_size)
+    pv = resolve_photo_views(config.max_photo_views, n_img)
+    pts, nrm, sco = (torch.from_numpy(a).to(dev) for a in (points, normals, scores))
+    thr = torch.from_numpy(np.where(
+        np.arange(d) < n_seeds, config.min_ncc_seed, config.min_ncc_expand,
+    ).astype(np.float32)).to(dev)
+    vis, proj, _, _ = photo_consistency(
+        gray, K, R, t, pts, torch.from_numpy(refs).to(dev), thr,
+        config.patch_wid, pv, kernels=kernels, mesh=mesh,
+    )
+    # The view gate bounds the visible views per patch, so the filter's
+    # incidence space compacts to photo_views - 1 per row.
+    k_hit = pv - 1 if 0 < pv < n_img else 0
+    valid = torch.ones(d, dtype=torch.bool, device=dev)
+    g_cap = _FILTER_G_CAP
+    while True:
+        keep, max_group, hits_dropped = filter_outliers_device(
+            pts, nrm, sco, vis, proj, valid, config.cell_size, gw, gh,
+            g_cap=g_cap, k_hit=k_hit,
+        )
+        out = torch.cat(
+            [keep.long(), max_group[None], hits_dropped[None]]
+        ).cpu().numpy()
+        max_group, hits_dropped = int(out[d]), int(out[d + 1])
+        if hits_dropped:
+            # A vis row exceeded the gate's per-row bound: cannot happen
+            # for visibility the same gate produced, and the keep mask
+            # would be inexact.
+            metrics.record("mvs_filter_hits_over_k", hits_dropped)
+            raise RuntimeError(
+                f"outlier filter: {hits_dropped} visible hits beyond the "
+                f"view gate's {k_hit} per patch; the keep mask would be "
+                "inexact"
+            )
+        if max_group <= g_cap:
+            break
+        # Exactness needs shifted-window offsets up to max_group - 1.
+        metrics.record("mvs_filter_gcap_escalated", max_group)
+        g_cap = 1 << (max_group - 1).bit_length()
+    metrics.record("mvs_filter_max_cell_group", max_group)
+    return out[:d] > 0
+
+
+def _mvs_fingerprint(images, config, bound, scale) -> str:
+    """Configuration fingerprint guarding mid-MVS checkpoint resumes: the
+    JAX package's v2 string, letter for letter (its ``crc`` is the last
+    field of ``io.images._cache_key``).
+
+    Budget knobs (max_rounds, max_patches) are deliberately excluded: a
+    legitimate resume may raise them to continue a finished budget.  Shape,
+    threshold and input knobs must match, or the restored occupancy and
+    frontier would not fit the run.  ``|nb{n}`` carries the image count
+    (the JAX package's bucket-padded count; the port pads nothing).
+    """
+    n, h, w = images.shape[:3]
+    return (
+        f"v2|{n}x{h}x{w}|crc{_cache_key(images)[-1]}|cell{config.cell_size}"
+        f"|wid{config.patch_wid}|ncc{config.min_ncc_seed}/{config.min_ncc_expand}"
+        f"|bound{bound}|cap{config.round_capacity}"
+        f"|views{resolve_photo_views(config.max_photo_views, n)}"
+        f"|cop{config.coplanarity_threshold}|rad{config.neighbor_radius_scaled}"
+        f"|scale{scale}|filter{int(config.enable_outlier_filter)}|nb{n}"
+    )
+
+
 def dense_reconstruction(
     images: np.ndarray,
     calib: Calibration,
@@ -139,6 +238,7 @@ def dense_reconstruction(
     scale: float = 1.0,
     mesh=None,
     checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 16,
     device=RuntimeConfig.device,
     kernels=None,
 ) -> DenseReconstruction:
@@ -149,17 +249,14 @@ def dense_reconstruction(
     With ``mesh`` the stage runs on ``mesh.lead`` (``device`` is not read)
     and the expansion rounds shard their candidate batches; the cloud
     equals the unsharded run's.
+
+    With ``checkpoint_dir`` the expansion loop persists its full state
+    (occupancy, frontier, backlog, accumulated cloud, counters) every
+    ``checkpoint_every`` rounds and resumes from it on the next call; the
+    state tensors go to numpy on save and back to the stage's device on
+    load.  The stage is deterministic, so the resumed cloud is the
+    uninterrupted run's, bit for bit.
     """
-    if checkpoint_dir is not None:
-        raise NotImplementedError(
-            "MVS checkpoint/resume is not ported to sfm_tpu_torch yet "
-            "(ROADMAP queue 1 item 12)"
-        )
-    if config.enable_outlier_filter:
-        raise NotImplementedError(
-            "the MVS outlier filter is not ported to sfm_tpu_torch yet "
-            "(ROADMAP queue 1 item 11)"
-        )
     timers = StageTimer()
     metrics = Metrics()
     n, h, w = images.shape[0], images.shape[1], images.shape[2]
@@ -182,8 +279,9 @@ def dense_reconstruction(
     # K2 reads a bf16 stack: one copy of the shared gray stack per stage.
     gray = gray.to(torch.bfloat16)
 
-    def dev(a, dtype):
-        return torch.as_tensor(np.ascontiguousarray(a), device=device).to(dtype)
+    def dev(a, dtype=None):
+        x = torch.as_tensor(np.ascontiguousarray(a), device=device)
+        return x if dtype is None else x.to(dtype)
 
     K = dev(calib.K, torch.float32)
     R = dev(calib.R, torch.float32)
@@ -193,43 +291,102 @@ def dense_reconstruction(
     # The expansion rounds' per-shard copies, made once for the stage.
     shards = tuple(mesh.replicate(x) for x in (gray, K, R, t))
 
-    with timers.stage("seed"):
-        track_id, ref_obs, other_obs = build_seed_candidates(
-            recon.track_offsets, recon.track_obs
+    fingerprint = (
+        _mvs_fingerprint(images, config, bound, scale) if checkpoint_dir else ""
+    )
+    state = ckpt.load_mvs_state(checkpoint_dir)
+    resumed = state is not None
+    if resumed:
+        saved_fp = str(state["fingerprint"])
+        if saved_fp != fingerprint:
+            raise ValueError(
+                f"MVS checkpoint in {checkpoint_dir} was written with a "
+                f"different configuration/input ({saved_fp!r} != "
+                f"{fingerprint!r}); delete {ckpt.MVS_STATE_FILE} to restart"
+            )
+        occupancy = dev(state["occupancy"])
+        frontier = {k: dev(state["f_" + k]) for k in _FRONTIER_KEYS}
+        # Valid rows in the restored (not yet dispatched) frontier: the
+        # backlog-merge accounting needs it.
+        fr_valid = int(state["f_valid"].sum())
+        backlog, bl_count = None, 0
+        if "b_c" in state:
+            bl_count = int(state["b_valid"].sum())
+            if bl_count:
+                backlog = {k: dev(state["b_" + k]) for k in _FRONTIER_KEYS}
+        total, rounds, dropped_candidates, n_seeds = (
+            int(x) for x in state["counters"]
         )
-        seeds, occupancy, seed_packed = seed_patches(
-            gray, K, R, t, centers_cam,
-            dev(track_id, torch.int32), dev(ref_obs, torch.int32),
-            dev(other_obs, torch.int32),
-            recon.num_tracks, occupancy, knobs, bound, kernels=kernels,
-        )
-        # ONE device->host copy for the whole seed stage; colors are
-        # sampled on the host from the original images.
-        sp = seed_packed.cpu().numpy()
-        seed_valid, s_c, s_n, s_score, s_color = unpack_patch_payload(sp, images)
-        n_seeds = int(seed_valid.sum())
+        all_c = [state["acc_c"]]
+        all_n = [state["acc_n"]]
+        all_score = [state["acc_score"]]
+        all_color = [state["acc_color"]]
+        all_ref = [state["acc_ref"]]
         metrics.record("mvs_num_seeds", n_seeds)
+        metrics.record("mvs_resumed_at_round", rounds)
+    else:
+        with timers.stage("seed"):
+            track_id, ref_obs, other_obs = build_seed_candidates(
+                recon.track_offsets, recon.track_obs
+            )
+            seeds, occupancy, seed_packed = seed_patches(
+                gray, K, R, t, centers_cam,
+                dev(track_id, torch.int32), dev(ref_obs, torch.int32),
+                dev(other_obs, torch.int32),
+                recon.num_tracks, occupancy, knobs, bound, kernels=kernels,
+            )
+            # ONE device->host copy for the whole seed stage; colors are
+            # sampled on the host from the original images.
+            sp = seed_packed.cpu().numpy()
+            seed_valid, s_c, s_n, s_score, s_color = unpack_patch_payload(
+                sp, images
+            )
+            n_seeds = int(seed_valid.sum())
+            metrics.record("mvs_num_seeds", n_seeds)
 
-    frontier, backlog = _split_frontier(seeds, cap)
-    total = n_seeds
-    # Exact live backlog count, tracked on the host with no device read:
-    # the split kept the first `cap` valid rows, so n_seeds - cap were
-    # deferred; each later merge updates it from the valid-row count of the
-    # frontier folded back in (the JAX package's round-4 accounting).
-    bl_count = max(0, n_seeds - cap) if backlog is not None else 0
-    fr_valid = n_seeds - bl_count
-    if backlog is not None and bl_count == 0:
-        backlog = None
-    if bl_count:
-        metrics.record("mvs_seed_frontier_deferred", bl_count)
-    all_c = [s_c[seed_valid]]
-    all_n = [s_n[seed_valid]]
-    all_score = [s_score[seed_valid]]
-    all_color = [s_color[seed_valid]]
-    all_ref = [_payload_refs(sp[seed_valid], n)]
+        frontier, backlog = _split_frontier(seeds, cap)
+        total = n_seeds
+        rounds = 0
+        dropped_candidates = 0
+        # Exact live backlog count, tracked on the host with no device
+        # read: the split kept the first `cap` valid rows, so n_seeds - cap
+        # were deferred; each later merge updates it from the valid-row
+        # count of the frontier folded back in (the JAX package's round-4
+        # accounting).
+        bl_count = max(0, n_seeds - cap) if backlog is not None else 0
+        fr_valid = n_seeds - bl_count
+        if backlog is not None and bl_count == 0:
+            backlog = None
+        if bl_count:
+            metrics.record("mvs_seed_frontier_deferred", bl_count)
+        all_c = [s_c[seed_valid]]
+        all_n = [s_n[seed_valid]]
+        all_score = [s_score[seed_valid]]
+        all_color = [s_color[seed_valid]]
+        all_ref = [_payload_refs(sp[seed_valid], n)]
 
-    rounds = 0
-    dropped_candidates = 0
+    def save_state():
+        host = lambda x: x.cpu().numpy()  # noqa: E731
+        st = {
+            "fingerprint": np.asarray(fingerprint),
+            "occupancy": host(occupancy),
+            "counters": np.asarray(
+                [total, rounds, dropped_candidates, n_seeds], np.int64
+            ),
+            "acc_c": np.concatenate(all_c).astype(np.float32),
+            "acc_n": np.concatenate(all_n).astype(np.float32),
+            "acc_score": np.concatenate(all_score).astype(np.float32),
+            "acc_color": np.concatenate(all_color),
+            "acc_ref": np.concatenate(all_ref).astype(np.int32),
+        }
+        for k in _FRONTIER_KEYS:
+            st["f_" + k] = host(frontier[k])
+        if backlog:
+            for k in _FRONTIER_KEYS:
+                st["b_" + k] = host(backlog[k])
+        ckpt.save_mvs_state(checkpoint_dir, st)
+
+    last_ckpt_rounds = rounds
     backlog_merge_s = 0.0
     backlog_rounds = 0
     hits_over_k = 0
@@ -237,8 +394,10 @@ def dense_reconstruction(
     # [scored, ray+finite, +coplanar+near, +NCC views, post-dedup accepts].
     funnel = np.zeros(5, np.int64)
     # A fresh split already holds the OLDEST `cap` valid seeds, so the
-    # first round runs without a merge (FIFO order).
-    skip_first_merge = True
+    # first round runs without a merge (FIFO order).  A resumed frontier is
+    # a round's accepted output (the newest), so there the merge before the
+    # first round is the FIFO order.
+    skip_first_merge = not resumed
     with timers.stage("expand"):
         while rounds < config.max_rounds and total < config.max_patches:
             if bl_count and not skip_first_merge:
@@ -272,18 +431,24 @@ def dense_reconstruction(
             hits_over_k += int(ph[cap, 1])
             funnel += ph[cap, 2:7].astype(np.int64)
             rounds += 1
-            if n_acc == 0:
-                # Frontier dry: deferred patches (if any) refill it at the
-                # next merge, so stop only when the backlog is empty too.
-                if bl_count == 0:
-                    break
-                continue
-            all_c.append(a_c[acc_valid])
-            all_n.append(a_n[acc_valid])
-            all_score.append(a_score[acc_valid])
-            all_color.append(a_color[acc_valid])
-            all_ref.append(_payload_refs(ph[:cap][acc_valid], n))
-            total += n_acc
+            # Frontier dry: deferred patches (if any) refill it at the next
+            # merge, so stop only when the backlog is empty too.
+            stop = n_acc == 0 and bl_count == 0
+            if n_acc:
+                all_c.append(a_c[acc_valid])
+                all_n.append(a_n[acc_valid])
+                all_score.append(a_score[acc_valid])
+                all_color.append(a_color[acc_valid])
+                all_ref.append(_payload_refs(ph[:cap][acc_valid], n))
+                total += n_acc
+            if checkpoint_dir and rounds - last_ckpt_rounds >= checkpoint_every:
+                save_state()
+                last_ckpt_rounds = rounds
+            if stop:
+                break
+    if checkpoint_dir:
+        # Completed: the mid-run state is superseded by the stage output.
+        ckpt.clear_mvs_state(checkpoint_dir)
     metrics.record("mvs_rounds", rounds)
     metrics.record("mvs_num_points", total)
     if funnel[0]:
@@ -305,12 +470,35 @@ def dense_reconstruction(
     if hits_over_k:
         metrics.record("mvs_hits_over_k", hits_over_k)
 
+    points = np.concatenate(all_c).astype(np.float32)
+    colors = np.concatenate(all_color).astype(np.uint8)
+    normals = np.concatenate(all_n).astype(np.float32)
+    scores = np.concatenate(all_score).astype(np.float32)
+    refs = np.concatenate(all_ref).astype(np.int32)
+
+    if config.enable_outlier_filter:
+        # Each patch's visibility is a deterministic function of (centre,
+        # reference image, threshold) through the scoring sweep the rounds
+        # used, so it is recomputed on the device in one final batch
+        # instead of being carried per round; the host reads one keep mask.
+        with timers.stage("filter"):
+            keep = _run_device_filter(
+                mesh, *shards, points, normals, scores, refs, n_seeds,
+                h, w, config, metrics, kernels=kernels,
+            )
+        metrics.record("mvs_filtered_out", int((~keep).sum()))
+        points, colors = points[keep], colors[keep]
+        normals, scores = normals[keep], scores[keep]
+        refs = refs[keep]
+        n_seeds = int(keep[:n_seeds].sum())
+        metrics.record("mvs_num_points_filtered", points.shape[0])
+
     return DenseReconstruction(
-        points=np.concatenate(all_c).astype(np.float32),
-        colors=np.concatenate(all_color).astype(np.uint8),
-        normals=np.concatenate(all_n).astype(np.float32),
-        scores=np.concatenate(all_score).astype(np.float32),
-        refs=np.concatenate(all_ref).astype(np.int32),
+        points=points,
+        colors=colors,
+        normals=normals,
+        scores=scores,
+        refs=refs,
         num_seeds=n_seeds,
         metrics=metrics,
         timers=timers,

@@ -2,8 +2,8 @@
 
 Two shared libraries with a plain C interface, loaded with ctypes:
 
-- the CUDA kernels (``sfm_tpu_torch/csrc/*.cu``), compiled by ``nvcc`` for
-  ``sm_90a`` (Hopper);
+- the CUDA kernels (``sfm_tpu_torch/csrc/*.cu`` and the ``*.cuh`` they
+  share), compiled by ``nvcc`` for ``sm_90a`` (Hopper);
 - the track store (``native/trackstore.cpp``), compiled by ``g++``.
 
 Outputs go to ``build/sfm_tpu_torch/`` at the repository root (listed in
@@ -32,6 +32,7 @@ TRACKSTORE_SRC = os.path.join(REPO_ROOT, "native", "trackstore.cpp")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
+    "--threads", "0",  # the sources compile side by side
     # No implicit multiply-add contraction: the kernels' fused multiply-adds
     # are explicit (__fmaf_rn), so they round exactly like the plain
     # PyTorch versions.
@@ -52,10 +53,11 @@ def _find_nvcc() -> str:
     return nvcc
 
 
-def _build(name: str, compiler: str, flags, sources) -> str:
-    """Compile ``sources`` into BUILD_DIR/lib<name>-<hash>.so (once)."""
+def _build(name: str, compiler: str, flags, sources, headers=()) -> str:
+    """Compile ``sources`` into BUILD_DIR/lib<name>-<hash>.so (once);
+    ``headers`` (files the sources include) only enter the hash."""
     h = hashlib.sha1(" ".join([compiler, *flags]).encode())
-    for src in sources:
+    for src in (*sources, *headers):
         with open(src, "rb") as f:
             h.update(f.read())
     out = os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
@@ -86,7 +88,10 @@ def _build(name: str, compiler: str, flags, sources) -> str:
 def kernel_library() -> ctypes.CDLL:
     """The CUDA kernels, built by nvcc on first call and loaded once."""
     sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
-    lib = ctypes.CDLL(_build("sfm_kernels", _find_nvcc(), NVCC_FLAGS, sources))
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+    lib = ctypes.CDLL(
+        _build("sfm_kernels", _find_nvcc(), NVCC_FLAGS, sources, headers)
+    )
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.harris_response_f32.argtypes = [ptr, ptr, i32, i32, i32, f32, ptr]
     lib.harris_response_f32.restype = i32
@@ -94,6 +99,10 @@ def kernel_library() -> ctypes.CDLL:
         ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr,
     ]
     lib.sample_normalized_patches_bf16.restype = i32
+    lib.sample_normalized_patches_tiled_bf16.argtypes = [
+        ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, ptr,
+    ]
+    lib.sample_normalized_patches_tiled_bf16.restype = i32
     return lib
 
 

@@ -7,8 +7,11 @@ fractional centers, in-bounds masks equal; K2 at the centres one ported
 expansion round produces on the card, plus NaN, +-inf and 1e10 centres,
 reading nothing outside the stack; phase 11's K2s (the sharded wrapper) on
 4 virtual shards of cuda:0, bit-equal to one K2 call at 163,840 and 163,843
-(the pad path) fractional centres; and K1 and K2 on cuda:1 while cuda:0 is
-current (skipped below two GPUs).  Marked ``cuda``; each test skips where
+(the pad path) fractional centres; K1 and K2 on cuda:1 while cuda:0 is
+current (skipped below two GPUs); and K3 (the tile-resident sampler) in its
+three modes at S = 8, 32, 128 against its plain versions and against K2, on
+the tool's case, an expansion round's centres, non-finite centres and the
+edges of a guarded and of an odd-width stack.  Marked ``cuda``; each test skips where
 ``torch.cuda.is_available()`` is False.  On the card (tests/conftest.py
 imports jax, which the card's machine lacks):
 
@@ -92,6 +95,30 @@ def test_k2_sharded_bit_equal_to_one_call(smoke, stack):
     # 2 shapes x 4 virtual shards (+ every GPU where there are several),
     # plus the timing windows.
     assert sample_normalized_patches_sharded.launches >= before + 2 * smoke.SHARDS
+
+
+def test_k3_modes_against_plain_versions_and_k2(smoke, stack):
+    from sfm_tpu_torch.ops.gather_tile import sample_normalized_patches_tiled
+
+    _, (img_f, ctr_f) = smoke.k2_inputs(stack, torch.zeros(
+        (stack.shape[0], 1, 2), dtype=torch.int32, device=stack.device))
+    before = sample_normalized_patches_tiled.launches
+    out = smoke.check_k3(stack.to(torch.bfloat16), img_f, ctr_f)
+    assert out["max_abs_err"] <= smoke.K2_FRAC_ATOL
+    assert out["bit_equal_k2"]
+    assert sample_normalized_patches_tiled.launches == before + 36
+
+
+def test_k3_raises_instead_of_falling_back(stack):
+    from sfm_tpu_torch.ops.gather_tile import sample_normalized_patches_tiled
+
+    g = stack.to(torch.bfloat16)
+    img = torch.zeros(4, dtype=torch.int32, device=g.device)
+    ctr = torch.full((4, 2), 50.0, device=g.device)
+    with pytest.raises(ValueError):  # a non-contiguous CUDA input
+        sample_normalized_patches_tiled(g, img, ctr.t().contiguous().t())
+    with pytest.raises(ValueError):  # inputs on two devices
+        sample_normalized_patches_tiled(g, img.cpu(), ctr)
 
 
 def test_kernels_launch_on_their_tensors_device(smoke, stack):

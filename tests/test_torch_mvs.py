@@ -12,6 +12,8 @@ bounded at 0.5 % of the candidates.  Other tolerances are stated per test.
 """
 
 import dataclasses
+import json
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -32,6 +34,7 @@ from sfm_tpu.mvs.photoconsistency import photo_consistency as j_photo
 from sfm_tpu.mvs.seed import build_seed_candidates as j_build_seed_candidates
 from sfm_tpu.mvs.seed import seed_patches as j_seed_patches
 from sfm_tpu.sfm.pipeline import structure_from_motion as j_sfm
+from sfm_tpu.utils import checkpoint as j_ckpt
 
 from sfm_tpu_torch.ba import bundle_adjust
 from sfm_tpu_torch.config import (
@@ -44,8 +47,11 @@ from sfm_tpu_torch.config import (
     resolve_photo_views,
     sparse_from_jax,
 )
+from sfm_tpu_torch.cli import main as t_main
+from sfm_tpu_torch.io import read_ply
 from sfm_tpu_torch.io.images import device_gray, gray_tensor
 from sfm_tpu_torch.mvs import cells, dense_reconstruction
+from sfm_tpu_torch.mvs import pipeline as t_pipeline
 from sfm_tpu_torch.mvs.expand import _nonzero_static, expansion_round
 from sfm_tpu_torch.mvs.photoconsistency import (
     _top_k,
@@ -56,6 +62,7 @@ from sfm_tpu_torch.mvs.photoconsistency import (
 from sfm_tpu_torch.mvs.pipeline import _split_frontier
 from sfm_tpu_torch.mvs.seed import build_seed_candidates, seed_patches
 from sfm_tpu_torch.sfm import structure_from_motion
+from sfm_tpu_torch.utils import checkpoint as t_ckpt
 from sfm_tpu_torch.utils import synth
 
 torch.set_num_threads(2)
@@ -357,7 +364,8 @@ def test_expansion_round_from_jax_seeds_matches_jax(scene, seeded):
 # --- the slice ------------------------------------------------------------------
 
 @pytest.mark.parametrize("cap,views", [(CAP, -1), (64, -1), (CAP, 5)])
-def test_dense_reconstruction_on_carried_sparse_matches_jax(scene, cap, views):
+def test_dense_reconstruction_on_carried_sparse_matches_jax(scene, cap, views,
+                                                            tmp_path):
     """cap 64 < the seed count: the frontier overflows into the backlog;
     views 5: the gated sweep and its top-k hit enumeration (auto leaves a
     12-view rig ungated)."""
@@ -381,12 +389,177 @@ def test_dense_reconstruction_on_carried_sparse_matches_jax(scene, cap, views):
     assert got.normals.shape == (n, 3) and got.refs.shape == (n,)
     assert got.scores[: got.num_seeds].min() > 0.4
     assert got.scores[got.num_seeds:].min() > 0.7
-    with pytest.raises(NotImplementedError, match="item 11"):
-        dense_reconstruction(images, rec.calib, rec,
-                             MvsConfig(enable_outlier_filter=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        dense_reconstruction(images, rec.calib, rec, device="cpu",
-                             checkpoint_dir="x")
+    if cap == 64:
+        # The two options that used to raise run: the filter removes nothing
+        # from the clean sphere (cellmates are coplanar), and a run that
+        # checkpoints every round gives the same cloud and clears its state.
+        cfg = MvsConfig(**dataclasses.asdict(jcfg))
+        filtered = dense_reconstruction(
+            images, rec.calib, rec,
+            dataclasses.replace(cfg, enable_outlier_filter=True), device="cpu")
+        assert filtered.metrics.values["mvs_filtered_out"] == 0
+        np.testing.assert_array_equal(filtered.points, got.points)
+        saved = dense_reconstruction(images, rec.calib, rec, cfg, device="cpu",
+                                     checkpoint_dir=str(tmp_path),
+                                     checkpoint_every=1)
+        np.testing.assert_array_equal(saved.points, got.points)
+        assert not os.path.exists(tmp_path / t_ckpt.MVS_STATE_FILE)
+
+
+# --- checkpoint / resume ----------------------------------------------------------
+
+CKPT_CFG = dict(round_capacity=64, max_rounds=ROUNDS, max_patches=20000,
+                shape_buckets=False)
+
+
+def killed_run(run, module, after, *args, **kw):
+    """``run(*args, **kw)`` with ``module.expansion_round`` raising on call
+    ``after`` + 1: the state on disk is the one saved after ``after``
+    rounds."""
+    real = module.expansion_round
+    calls = {"n": 0}
+
+    def killing_round(*a, **k):
+        calls["n"] += 1
+        if calls["n"] > after:
+            raise RuntimeError("simulated crash")
+        return real(*a, **k)
+
+    module.expansion_round = killing_round
+    try:
+        with pytest.raises(RuntimeError, match="simulated crash"):
+            run(*args, **kw)
+    finally:
+        module.expansion_round = real
+
+
+def test_kill_and_resume_is_bit_identical(scene, tmp_path):
+    """Cap 64 is below the seed count, so the saved state carries a live
+    backlog; the resumed cloud equals the uninterrupted one bit for bit."""
+    images, rec = scene["images"], scene["rec"]
+    cfg = MvsConfig(**CKPT_CFG)
+    full = dense_reconstruction(images, rec.calib, rec, cfg, device="cpu")
+    ck = str(tmp_path / "ckpt")
+    killed_run(dense_reconstruction, t_pipeline, 3, images, rec.calib, rec, cfg,
+               device="cpu", checkpoint_dir=ck, checkpoint_every=1)
+    state = t_ckpt.load_mvs_state(ck)
+    assert int(state["counters"][1]) == 3 and state["b_valid"].sum() > 0
+    resumed = dense_reconstruction(images, rec.calib, rec, cfg, device="cpu",
+                                   checkpoint_dir=ck, checkpoint_every=1)
+    assert resumed.metrics.values["mvs_resumed_at_round"] == 3
+    assert resumed.num_seeds == full.num_seeds
+    for f in ("points", "colors", "normals", "scores", "refs"):
+        np.testing.assert_array_equal(getattr(resumed, f), getattr(full, f), f)
+    for k in ("mvs_rounds", "mvs_num_points", "mvs_candidates_over_capacity"):
+        assert resumed.metrics.values[k] == full.metrics.values[k], k
+    assert t_ckpt.load_mvs_state(ck) is None  # completion clears the state
+    # A coarser cadence saves less often: killed after 3 rounds at every=2,
+    # the state on disk is round 2's, and the resume still ends the same.
+    killed_run(dense_reconstruction, t_pipeline, 3, images, rec.calib, rec, cfg,
+               device="cpu", checkpoint_dir=ck, checkpoint_every=2)
+    assert int(t_ckpt.load_mvs_state(ck)["counters"][1]) == 2
+    again = dense_reconstruction(images, rec.calib, rec, cfg, device="cpu",
+                                 checkpoint_dir=ck, checkpoint_every=2)
+    np.testing.assert_array_equal(again.points, full.points)
+
+
+def test_fingerprint_mismatch_rejected(scene, tmp_path):
+    images, rec = scene["images"], scene["rec"]
+    ck = str(tmp_path / "ckpt")
+    killed_run(dense_reconstruction, t_pipeline, 1, images, rec.calib, rec,
+               MvsConfig(**CKPT_CFG), device="cpu", checkpoint_dir=ck,
+               checkpoint_every=1)
+    for change in (dict(cell_size=4), dict(min_ncc_expand=0.6),
+                   dict(enable_outlier_filter=True)):
+        with pytest.raises(ValueError, match="different configuration"):
+            dense_reconstruction(
+                images, rec.calib, rec, MvsConfig(**{**CKPT_CFG, **change}),
+                device="cpu", checkpoint_dir=ck, checkpoint_every=1)
+    with pytest.raises(ValueError, match="different configuration"):
+        dense_reconstruction(images, rec.calib, rec, MvsConfig(**CKPT_CFG),
+                             scale=2.0, device="cpu", checkpoint_dir=ck)
+    # Budgets are not part of the fingerprint: a resume may raise them.
+    more = dense_reconstruction(
+        images, rec.calib, rec, MvsConfig(**{**CKPT_CFG, "max_rounds": 3}),
+        device="cpu", checkpoint_dir=ck)
+    assert more.metrics.values["mvs_rounds"] == 3
+
+
+def test_mid_mvs_state_is_the_jax_packages_format(scene, tmp_path):
+    """Both packages killed after 2 rounds: the same file name, keys, dtypes
+    and shapes, the same fingerprint string letter for letter; sfm_tpu's
+    loader reads the port's file, and the port resumes from sfm_tpu's."""
+    import sfm_tpu.mvs.pipeline as j_pipeline
+
+    images, rec = scene["images"], scene["rec"]
+    jck, tck = str(tmp_path / "jax"), str(tmp_path / "torch")
+    killed_run(j_dense, j_pipeline, 2, images, scene["jcal"], scene["jrec"],
+               JMvsConfig(**CKPT_CFG), checkpoint_dir=jck, checkpoint_every=1)
+    killed_run(dense_reconstruction, t_pipeline, 2, images, rec.calib, rec,
+               MvsConfig(**CKPT_CFG), device="cpu", checkpoint_dir=tck,
+               checkpoint_every=1)
+    assert os.listdir(jck) == os.listdir(tck) == [j_ckpt.MVS_STATE_FILE]
+    want, got = j_ckpt.load_mvs_state(jck), j_ckpt.load_mvs_state(tck)
+    assert set(got) == set(want) and "b_c" in got
+    assert str(got["fingerprint"]) == str(want["fingerprint"])
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        if not k.startswith(("acc_", "b_")):  # counts differ by NCC flips
+            assert got[k].shape == want[k].shape, k
+        assert got[k].shape[1:] == want[k].shape[1:], k
+    np.testing.assert_array_equal(got["counters"][[1, 2]], want["counters"][[1, 2]])
+    full = j_dense(images, scene["jcal"], scene["jrec"], JMvsConfig(**CKPT_CFG))
+    resumed = dense_reconstruction(images, rec.calib, rec, MvsConfig(**CKPT_CFG),
+                                   device="cpu", checkpoint_dir=jck)
+    assert resumed.metrics.values["mvs_resumed_at_round"] == 2
+    assert resumed.num_seeds == full.num_seeds
+    assert abs(resumed.num_points - full.num_points) <= 0.02 * full.num_points
+
+
+def test_cli_resumes_from_the_jax_packages_sfm_checkpoint(scene, tmp_path, capsys):
+    """sfm_tpu writes ``sfm.npz``; the port's ``--stages ba,mvs`` resumes
+    from it, writes ``ba.npz``, and ``--stages mvs`` alone then resumes
+    from that; with all three ported flags on."""
+    pytest.importorskip("PIL")
+    ds = str(tmp_path / "ring")
+    _, par, spheres = synth.write_middlebury_dataset(
+        ds, centers=synth.ring_rig(12), w=200, h=150, image_type="png",
+        spheres=(((0.0, 0.0, 0.0), 1.0),), texture_freq_scale=1.0, seed=1,
+    )
+    ck, out = str(tmp_path / "ckpt"), str(tmp_path / "out")
+    j_ckpt.save_sparse(j_ckpt.stage_path(ck, "sfm"), scene["jrec"])
+    loaded = t_ckpt.load_sparse(os.path.join(ck, "sfm.npz"))
+    np.testing.assert_array_equal(loaded.track_obs, scene["jrec"].track_obs)
+    assert loaded.calib.names == tuple(scene["jcal"].names)
+    args = ["-img_p", ds, "-par_p", par, "-t", "png", "--mvs_round_capacity",
+            "2048", "--mvs_rounds", "8", "--out_dir", out, "--device", "cpu",
+            "--checkpoint_dir", ck, "--mvs_checkpoint_every", "2"]
+    assert t_main(args + ["--stages", "ba,mvs", "--refine_cameras",
+                          "--enable_outlier_filter"]) == 0
+    summary = json.loads(
+        [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("{")][-1])
+    assert set(summary) == {"ba_final_cost", "ba_rms_reproj_px", "mvs_seeds",
+                            "mvs_points", "timers_s"}
+    assert sorted(os.listdir(ck)) == ["ba.npz", "sfm.npz"]
+    ba_pts, _ = read_ply(os.path.join(out, "sparse_points_ba.ply"))
+    assert ba_pts.shape == (scene["jrec"].num_tracks, 3)
+    dense, _ = read_ply(os.path.join(out, "all_patches.ply"))
+    assert dense.shape[0] == summary["mvs_points"] > 1000
+    assert np.median(synth.surface_distance(dense, spheres)) < 0.02
+    # sfm_tpu reads the port's ba.npz.
+    back = j_ckpt.load_sparse(os.path.join(ck, "ba.npz"))
+    np.testing.assert_allclose(back.world, ba_pts, atol=1e-5)
+    # --stages mvs alone: from ba.npz, the same dense cloud.
+    out2 = str(tmp_path / "out2")
+    assert t_main(args[:args.index("--out_dir")] + ["--out_dir", out2]
+                  + args[args.index("--out_dir") + 2:]
+                  + ["--stages", "mvs", "--enable_outlier_filter"]) == 0
+    dense2, _ = read_ply(os.path.join(out2, "all_patches.ply"))
+    np.testing.assert_array_equal(dense2, dense)
+    # Without a checkpoint there is nothing to resume from.
+    assert t_main(["-img_p", ds, "-par_p", par, "-t", "png", "--device", "cpu",
+                   "--out_dir", out2, "--stages", "mvs"]) == 2
+    assert "no reconstruction" in capsys.readouterr().err
 
 
 @pytest.fixture(scope="module")

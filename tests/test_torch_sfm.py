@@ -326,11 +326,23 @@ def test_cli_sfm_stage(tmp_path, capsys):
     assert np.percentile(synth.surface_distance(pts, spheres), 95) < 0.05
     # Flags whose machinery is not ported exit 2 instead of running the
     # default path; so do unknown stages and BA/MVS without a sparse stage.
-    for extra in (["--stages", "sfm", "--plot"], ["--refine_cameras"],
-                  ["--enable_outlier_filter"], ["--checkpoint_dir", out],
-                  ["--debug"], ["--profile_dir", out]):
+    for extra in (["--stages", "sfm", "--plot"], ["--debug"],
+                  ["--profile_dir", out]):
         assert t_main(args + extra) == 2
         assert "not yet ported" in capsys.readouterr().err
+    # Ported flags run: the sfm stage with all three writes its checkpoint,
+    # and a second run resumes from it with the same cloud.
+    ck = str(tmp_path / "ckpt")
+    flags = ["--stages", "sfm", "--refine_cameras", "--enable_outlier_filter",
+             "--checkpoint_dir", ck]
+    assert t_main(args + flags) == 0
+    assert os.path.exists(os.path.join(ck, "sfm.npz"))
+    first, _ = read_ply(os.path.join(out, "sparse_points.ply"))
+    capsys.readouterr()
+    assert t_main(args + flags) == 0
+    assert "resumed sparse reconstruction" in capsys.readouterr().out
+    again, _ = read_ply(os.path.join(out, "sparse_points.ply"))
+    np.testing.assert_array_equal(again, first)
     assert t_main(args + ["--stages", "sfm,dense"]) == 2
     assert "unknown stage" in capsys.readouterr().err
     assert t_main(args + ["--stages", "ba,mvs"]) == 2
@@ -378,7 +390,10 @@ def test_import_leaves_jax_out():
     code = (
         "import sys, sfm_tpu_torch, sfm_tpu_torch.cli, sfm_tpu_torch.sfm, "
         "sfm_tpu_torch.ba, sfm_tpu_torch.mvs, sfm_tpu_torch.mvs.expand, "
-        "sfm_tpu_torch.ops, sfm_tpu_torch.utils.synth, sfm_tpu_torch.utils.build; "
+        "sfm_tpu_torch.ops, sfm_tpu_torch.utils.synth, sfm_tpu_torch.utils.build, "
+        "sfm_tpu_torch.mvs.filter, sfm_tpu_torch.utils.checkpoint, "
+        "sfm_tpu_torch.ops.gather_tile, sfm_tpu_torch.tools.prof_tile, "
+        "sfm_tpu_torch.ba.sharded; "
         "assert 'jax' not in sys.modules, 'jax imported'; "
         "assert not any(m == 'sfm_tpu' or m.startswith('sfm_tpu.') for m in sys.modules)"
     )

@@ -161,8 +161,30 @@ def test_solve_lm_sharded_matches_jax_and_single(mesh8):
     np.testing.assert_allclose(pts.numpy(), np.asarray(jpts), rtol=0, atol=1e-8)
     np.testing.assert_allclose(pts.numpy(), pts1.numpy(), rtol=0, atol=1e-8)
     assert torch.equal(cams, tp.cams)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        solve_lm_sharded(tp, mesh8)  # optimize_cameras=True default
+
+
+@pytest.mark.parametrize("span", [0, 1], ids=["pcg", "dense"])
+def test_solve_lm_sharded_joint_matches_single_and_jax(mesh8, span):
+    """The joint solve over 8 virtual shards (the dense one on shards cut
+    at track boundaries, its partial S's psummed) against the port's single
+    device and sfm_tpu's 8 simulated devices, float64: LM iterations equal,
+    cost to rtol 1e-6 (regrouped sums, CG at a 1e-6 residual), parameters to
+    1e-5."""
+    jp, _ = synthetic_problem(np.random.default_rng(1), n_cams=5, n_pts=100,
+                              noise_3d=0.08, noise_px=0.3)
+    kw = dict(max_iterations=15, pair_span=span)  # optimize_cameras=True default
+    jc, jpts, jcost, jit = j_solve_lm_sharded(jp, j_data_mesh(), **kw)
+    tp = carry(jp)
+    cams, pts, cost, it = solve_lm_sharded(tp, mesh8, **kw)
+    cams1, pts1, cost1, it1 = solve_lm(tp, **kw)
+    assert it == int(jit) == it1 and it >= 1
+    np.testing.assert_allclose(float(cost), float(jcost), rtol=1e-6)
+    np.testing.assert_allclose(float(cost), float(cost1), rtol=1e-6)
+    np.testing.assert_allclose(pts.numpy(), np.asarray(jpts), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(pts.numpy(), pts1.numpy(), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(cams.numpy(), np.asarray(jc), rtol=1e-6, atol=1e-5)
+    np.testing.assert_allclose(cams.numpy(), cams1.numpy(), rtol=1e-6, atol=1e-5)
+    assert not torch.equal(cams, tp.cams)
 
 
 # --- K2s and photo-consistency -------------------------------------------------
@@ -321,8 +343,16 @@ def test_bundle_adjust_sharded(sparse, mesh8):
         np.testing.assert_allclose(i8[k], i1[k], rtol=1e-9, err_msg=k)
     np.testing.assert_allclose(r8.world, r1.world, rtol=0, atol=1e-8)
     assert r8.metrics.values["ba_mesh_devices"] == 8
-    with pytest.raises(NotImplementedError, match="item 10"):
-        bundle_adjust(copy(), BaConfig(refine_cameras=True), mesh=mesh8)
+    # Joint BA over the mesh (dense Schur: 12 cameras <= dense_schur_max_cams).
+    joint = BaConfig(dtype="float64", refine_cameras=True)
+    j1, ji1 = bundle_adjust(copy(), joint, device="cpu")
+    j8, ji8 = bundle_adjust(copy(), joint, mesh=mesh8)
+    assert ji8["camera_solver"] == ji1["camera_solver"] == "dense_schur"
+    assert ji8["iterations"] == ji1["iterations"] >= 1
+    np.testing.assert_allclose(ji8["final_cost"], ji1["final_cost"], rtol=1e-6)
+    np.testing.assert_allclose(ji8["cams11"], ji1["cams11"], rtol=1e-6, atol=1e-5)
+    np.testing.assert_allclose(j8.world, j1.world, rtol=0, atol=1e-5)
+    assert ji1["final_cost"] < i1["final_cost"]
 
 
 def test_dense_sharded_matches_single(ring, sparse, mesh8):
