@@ -8,7 +8,11 @@ Run from the repository root on a machine with one NVIDIA GPU:
 It builds the CUDA kernels and the track store from the sources, holds
 each kernel against its plain PyTorch version at the shapes of the main
 path (K2 also at the centres of one expansion round and at non-finite
-centres), drives the main path on a rendered 48-frame 640x480
+centres, on the in-bounds limits, at M = 1, 7 and 163,843, at wid 0, 2 and
+8 and on guarded and odd-width stacks, with its mask held to the plain
+``_inbounds`` and one device kernel per call; K1 also on an odd width, on
+tiny images, on a 4-byte-aligned stack and on non-integer gray), drives the
+main path on a rendered 48-frame 640x480
 textured-sphere ring -- the SfM stage, points-only bundle adjustment and
 dense MVS at the CLI defaults, each as a library call with the launch
 counts read around it, then the CLI's default ``--stages sfm,ba,mvs`` --
@@ -50,6 +54,17 @@ WID = 5                                      # 11x11 descriptors
 MVS_SAMPLES = 32768 * 5                      # round_capacity x photo views
 K2_FRAC_ATOL = 8e-3
 SHARDS = 4                                   # virtual shards of one card
+# What this script read for the kernels' first designs (a 16 x 32 tile in
+# shared memory for K1; one 2-byte load per tap and a mask of seven
+# elementwise launches for K2)
+# on an NVIDIA H100 80GB HBM3 at 700 W, the last time it ran on them:
+# kernel-only ms, and the host microseconds and device kernels of one K2
+# call.  Logged beside this run's numbers, never in the ``kernels`` line
+# (that holds only what this run measured); nothing is checked against them.
+# tools/bench_kernels.py times two versions of the sources in one process.
+PARENT = {"k1_kernel_only_ms": 0.14676, "k2_int_kernel_only_ms": 0.0360,
+          "k2_frac_kernel_only_ms": 0.11444,
+          "k2_host_us_per_call": 144.0, "k2_device_kernels_per_call": 7.94}
 
 
 def check(cond, msg):
@@ -96,6 +111,42 @@ def check_k1(gray):
     log(f"K1: response bit-equal on {tuple(gray.shape)}; corners bit-equal "
         f"({int(vk.sum())} valid of {vk.numel()})")
     return {"max_abs_err": float((got - want).abs().max()), "corners": ck}
+
+
+def check_k1_shapes(dev):
+    """K1 on shapes off the main path, bit-equal on integer gray: the CPU
+    tests' 2 x 150 x 200; an odd width (4-byte loads and stores); images
+    smaller than a thread's 4 columns and than the 3 x 3 support; a stack
+    whose first element is only 4-byte aligned.  And on non-integer gray,
+    where K1's separable box sums may differ from ``_box3``'s in their last
+    bit (and det = sxx syy - sxy^2 amplifies that where it cancels): within
+    1e-5 of the largest |R|."""
+    import torch
+
+    from sfm_tpu_torch.ops.harris import _harris_math, harris_response
+
+    g = torch.Generator(device="cpu").manual_seed(3)
+    for shape in ((2, 150, 200), (3, 37, 201), (1, 5, 3), (1, 2, 2), (2, 33, 128)):
+        gray = torch.randint(0, 256, shape, generator=g).float().to(dev)
+        check(torch.equal(harris_response(gray, 0.04), _harris_math(gray, 0.04)),
+              f"K1 bit-equal on integer gray {shape}")
+    n, h, w = 2, 64, 128
+    buf = torch.randint(0, 256, (n * h * w + 1,), generator=g).float().to(dev)
+    off = buf[1:].view(n, h, w)
+    check(off.data_ptr() % 16 == 4, "the offset stack is 4-byte aligned")
+    check(torch.equal(harris_response(off, 0.04), _harris_math(off, 0.04)),
+          "K1 bit-equal on a stack that is not 16-byte aligned")
+    real = (torch.rand((3, 150, 200), generator=g) * 255).to(dev)
+    got, want = harris_response(real, 0.04), _harris_math(real, 0.04)
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    rel = float(diff.max() / want.abs().max())
+    check(rel <= 1e-5, f"K1 on non-integer gray: {rel} of max |R| > 1e-5")
+    log(f"K1: bit-equal on integer gray at 2x150x200, 3x37x201, 1x5x3, 1x2x2, "
+        f"2x33x128 and on a 4-byte-aligned stack; non-integer 3x150x200: "
+        f"{int((diff > 0).sum())} of {diff.numel()} values differ, max "
+        f"{rel:.3e} of max |R|")
+    return {"nonint_rel_err": rel}
 
 
 def k2_inputs(gray, corners):
@@ -148,6 +199,101 @@ def check_k2(gray_bf16, k2_in):
             f"({ulps:.2f} bf16 ulps), in-bounds {int(inb.sum())}")
         out[name] = err
     return out
+
+
+def limit_centres(h, w, wid, dev):
+    """Centres exactly on the four in-bounds limits and one f32 step
+    either side of each, the other coordinate mid-image."""
+    import torch
+
+    rows = []
+    for lim, axis in ((wid + 1.0, 0), (w - wid - 2.0, 0),
+                      (wid + 1.0, 1), (h - wid - 2.0, 1)):
+        lim = torch.tensor(lim)
+        for v in (lim, torch.nextafter(lim, torch.tensor(-1e30)),
+                  torch.nextafter(lim, torch.tensor(1e30))):
+            rows.append([float(v), h / 2] if axis == 0 else [w / 2, float(v)])
+    return torch.tensor(rows, dtype=torch.float32, device=dev)
+
+
+def check_k2_redesign(gray_bf16, img_f, ctr_f):
+    """What K2's one-launch design adds to hold: the kernel's mask equal to
+    the plain ``_inbounds`` on the limits and a float step either side;
+    M = 1, 7 and 163,843 (a partial last block) bit-equal to the same rows
+    of one larger call; wid 0, 2 and 8 on a small
+    stack against the plain version; and the guarded and odd-width stacks of
+    ``k3_cases`` for K2 itself (finite wherever the centre is: nothing read
+    outside the stack)."""
+    import torch
+
+    from sfm_tpu_torch.ops.gather import _sample_plain, sample_normalized_patches
+    from sfm_tpu_torch.ops.ncc import _inbounds
+
+    n, h, w = gray_bf16.shape
+    dev = gray_bf16.device
+    ctr = limit_centres(h, w, WID, dev)
+    img = torch.arange(ctr.shape[0], dtype=torch.int32, device=dev) % n
+    _, inb = sample_normalized_patches(gray_bf16, img, ctr, WID)
+    want = _inbounds(ctr[:, 0], ctr[:, 1], h, w, WID)
+    check(torch.equal(inb, want), "K2 mask on the limits equal to _inbounds")
+    check(inb.view(4, 3).tolist() == [[True, False, True], [True, True, False]] * 2,
+          f"K2 mask on / inside / outside the limits: {inb.view(4, 3).tolist()}")
+
+    g = torch.Generator(device="cpu").manual_seed(4)
+    img_r = torch.cat([img_f, torch.randint(0, n, (3,), generator=g,
+                                            dtype=torch.int32).to(dev)])
+    ctr_r = torch.cat([ctr_f, (torch.rand((3, 2), generator=g)
+                               * torch.tensor([w - 1.0, h - 1.0])).to(dev)])
+    full, full_inb = sample_normalized_patches(gray_bf16, img_r, ctr_r, WID)
+    plain = _sample_plain(gray_bf16, img_r, ctr_r, WID)
+    err = float((full.float() - plain.float()).abs().max())
+    check(err <= K2_FRAC_ATOL, f"K2 at M = {img_r.numel()}: {err}")
+    check(torch.equal(full_inb, _inbounds(ctr_r[:, 0], ctr_r[:, 1], h, w, WID)),
+          f"K2 mask at M = {img_r.numel()}")
+    for m in (1, 7):
+        # the last m rows: another block, lane and store path than in `full`
+        got, got_inb = sample_normalized_patches(
+            gray_bf16, img_r[-m:].contiguous(), ctr_r[-m:].contiguous(), WID)
+        check(torch.equal(got, full[-m:]) and torch.equal(got_inb, full_inb[-m:]),
+              f"K2 at M = {m} bit-equal to the same rows of a larger call")
+
+    small = (torch.rand((3, 40, 64), generator=g) * 255).to(dev).to(torch.bfloat16)
+    img_s = torch.randint(0, 3, (4099,), generator=g, dtype=torch.int32).to(dev)
+    ctr_s = ((torch.rand((4099, 2), generator=g) * torch.tensor([70.0, 46.0]) - 3.0)
+             .to(dev).contiguous())
+    errs = {}
+    for wid in (0, 2, 8):
+        got, got_inb = sample_normalized_patches(small, img_s, ctr_s, wid)
+        want = _sample_plain(small, img_s, ctr_s, wid)
+        check(torch.equal(got_inb, _inbounds(ctr_s[:, 0], ctr_s[:, 1], 40, 64, wid)),
+              f"K2 wid {wid}: mask")
+        if wid == 0:
+            # a one-pixel patch is its own mean: 0 / max(0, 1e-8) = 0
+            check(not bool(got.float().any()) and not bool(want.float().any()),
+                  "K2 wid 0: zero descriptors")
+        errs[wid] = float((got.float() - want.float()).abs().max())
+        check(errs[wid] <= K2_FRAC_ATOL, f"K2 wid {wid}: {errs[wid]}")
+
+    for name, gs, img, ctr in k3_cases(gray_bf16, img_f, ctr_f):
+        if name not in ("guarded edges", "odd width"):
+            continue
+        fin = torch.isfinite(ctr).all(dim=1)
+        got, got_inb = sample_normalized_patches(gs, img, ctr, WID)
+        want = _sample_plain(gs, img, ctr, WID)
+        check(bool(torch.isfinite(got.float()[fin]).all()),
+              f"K2 {name}: read outside the stack (NaN)")
+        e = float((got.float() - want.float())[fin].abs().max())
+        check(e <= K2_FRAC_ATOL, f"K2 {name}: {e} > {K2_FRAC_ATOL}")
+        check(torch.equal(got_inb, _inbounds(ctr[:, 0], ctr[:, 1], gs.shape[1],
+                                             gs.shape[2], WID)),
+              f"K2 {name}: mask")
+        errs[name] = e
+    torch.cuda.synchronize()
+    log("K2: mask equal to _inbounds on the limits and a float step either "
+        f"side; M = 1, 7 bit-equal to rows of M = {img_r.numel()} (max abs err "
+        f"{err:.3e} to the plain version); max abs err by wid / stack: "
+        + json.dumps({str(k): v for k, v in errs.items()}))
+    return {"max_abs_err": max(err, *errs.values())}
 
 
 def k3_cases(gray_bf16, img_f, ctr_f):
@@ -266,9 +412,12 @@ def host_and_device(fn, calls=50):
     """Where a call's time goes, per call: ``host_us`` to enqueue it (the
     host loop alone, nothing waited for), ``with_device_us`` to the sync
     after the loop, and under torch.profiler the device kernels it launches
-    and their summed device ms."""
+    and their summed device ms.  The profiler may lose the first events of
+    a session, so the session opens with ten fills and a sync; every device
+    kernel that starts after the counted window opens is counted, whatever
+    its name."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     for _ in range(3):
         fn()
@@ -279,16 +428,32 @@ def host_and_device(fn, calls=50):
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
+    marker = torch.empty(1024, device="cuda")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+        for _ in range(10):
+            marker.fill_(0.0)
         torch.cuda.synchronize()
-    kern = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+        time.sleep(0.002)  # far more than the host and device clocks differ by
+        with record_function("counted_window"):
+            time.sleep(0.002)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    opened = [e.time_range.start for e in events if e.name == "counted_window"
+              and e.device_type == torch.autograd.DeviceType.CPU]
+    check(len(opened) >= 1, "the counted window is not in the profile")
+    # (the profiler lists the window a second time, as a device-side span)
+    device = [e for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.name != "counted_window"]
+    kern = [e for e in device if e.time_range.start >= min(opened)]
+    check(len(kern) < len(device), "no marker fill seen before the window")
     return {"host_us": (t1 - t0) / calls * 1e6,
             "with_device_us": (t2 - t0) / calls * 1e6,
             "launches": len(kern) / calls,
-            "device_ms": sum(e.time_range.elapsed_us() for e in kern) / 1e3 / calls}
+            "device_ms": sum(e.time_range.elapsed_us() for e in kern) / 1e3 / calls,
+            "kernels": sorted({e.name[:48] for e in kern})}
 
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM3 bytes/s and
@@ -326,14 +491,18 @@ def kernel_only_ms(fn, name_part, calls=20):
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    marker = torch.empty(1024, device="cuda")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            marker.fill_(0.0)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
     us = [e.time_range.elapsed_us() for e in prof.events()
           if e.device_type == torch.autograd.DeviceType.CUDA
           and name_part in e.name]
-    # The profiler may lose the first events of a window: average those seen.
+    # The profiler may lose the first events of a session (hence the fills
+    # that open it): average those seen.
     check(calls // 2 <= len(us) <= calls,
           f"{name_part}: {len(us)} kernels seen in {calls} calls")
     return sum(us) / 1e3 / len(us)
@@ -722,16 +891,26 @@ def check_k2_sharded(gray_bf16, img_f, ctr_f):
     }
     log(f"K2s at {img_f.numel()} samples on {SHARDS} virtual shards vs one K2 "
         f"call, ms: " + json.dumps({k: round(v, 4) for k, v in t.items()}))
+    where = {}
     for what, fn in (
             ("one K2 call", lambda: sample_normalized_patches(
                 gray_bf16, img_f, ctr_f, WID)),
             (f"K2s on {SHARDS} virtual shards",
              lambda: sample_normalized_patches_sharded(
                  reps, img_f, ctr_f, WID, mesh))):
+        where[what] = host_and_device(fn)
         log(f"attribution, {what} at {img_f.numel()} samples: "
-            + json.dumps(host_and_device(fn)))
+            + json.dumps(where[what]))
+    one = where["one K2 call"]
+    log(f"one K2 call: {one['launches']} device kernels, host "
+        f"{one['host_us']:.1f} us, with the device {one['with_device_us']:.1f} us "
+        f"(first design: {PARENT['k2_device_kernels_per_call']} kernels, "
+        f"{PARENT['k2_host_us_per_call']} us of host time)")
+    check(one["launches"] == 1.0,
+          f"a K2 call is {one['launches']} device kernels, not 1")
     return {"max_abs_err": err, "max_abs_err_plain": err_plain,
-            "gpus": len(dict.fromkeys(meshes[-1].devices)), **t}
+            "gpus": len(dict.fromkeys(meshes[-1].devices)), **t,
+            "one_call": one}
 
 
 def sparse_copy(r):
@@ -888,9 +1067,11 @@ def main() -> int:
 
     gray = gray_tensor(images, "cuda")
     k1 = check_k1(gray)
+    k1_shapes = check_k1_shapes(gray.device)
     gray_bf16 = gray.to(torch.bfloat16)
     k2_in = k2_inputs(gray, k1["corners"])
     k2 = check_k2(gray_bf16, k2_in)
+    k2["redesign"] = check_k2_redesign(gray_bf16, *k2_in[1])["max_abs_err"]
 
     # --- 4. the SfM stage ---------------------------------------------------
     run_sfm(images, calib, kernels=True)  # warm: allocator, cuBLAS, sort
@@ -1150,7 +1331,8 @@ def main() -> int:
             gray_bf16, img_f, ctr_f, WID), "gather_kernel"),
     }
     log("K1 / K2 kernel-only device ms: "
-        + json.dumps({k: round(v, 5) for k, v in kernel_only.items()}))
+        + json.dumps({k: round(v, 5) for k, v in kernel_only.items()})
+        + "; first designs: " + json.dumps(PARENT))
 
     # --- 15. MVS with the outlier filter at the CLI defaults ----------------
     f_first, _, seen = run_filtered_mvs(images, recon, hold_oracle=True)
@@ -1265,7 +1447,9 @@ def main() -> int:
          # f32 in, f32 out; ~55 operations per pixel (two Sobels, three
          # products, three 3x3 box sums, det - k trace^2).
          **bound(2 * 4 * n_px, 55 * n_px), "library_ms": None,
-         "kernel_only_ms": kernel_only["k1"], "shape": list(gray.shape)},
+         "kernel_only_ms": kernel_only["k1"],
+         "nonint_rel_err": k1_shapes["nonint_rel_err"],
+         "shape": list(gray.shape)},
         {"name": "sample_normalized_patches", "route": "cuda",
          "source": "sfm_tpu_torch/csrc/gather.cu",
          "replaces": "sfm_tpu/ops/gather.py:112",
@@ -1273,6 +1457,8 @@ def main() -> int:
          "max_abs_err": max(k2.values()), "ms": t["k2_int"],
          "plain_ms": t["k2_int_plain"], **gather_bound(gray_bf16, img_i.numel()),
          "library_ms": None, "kernel_only_ms": kernel_only["k2_int"],
+         "device_kernels_per_call": k2s["one_call"]["launches"],
+         "host_us_per_call": k2s["one_call"]["host_us"],
          "samples": img_i.numel(),
          "ms_fractional": t["k2_frac"], "plain_ms_fractional": t["k2_frac_plain"],
          "bound_ms_fractional": gather_bound(gray_bf16, img_f.numel())["bound_ms"],

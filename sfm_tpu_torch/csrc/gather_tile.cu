@@ -15,9 +15,11 @@
 //   single-buffered  stage a step's S windows, wait, extract and normalise;
 //   double-buffered  start step i+1's copies before processing step i.
 //
-// Bounds on Hopper: memory latency, as K2.  A sample's window is 12 rows of
-// 24 bytes at a data-dependent address; the stack of a 48 x 480 x 640 run
-// (29 MB) sits in the 50 MB L2, so the copies are L2 hits.  Design: a
+// Bounds on Hopper: the copies and the block barriers around each step
+// (copy-only takes most of a full mode's time), not bytes.  A sample's
+// window is 12 rows of 24 bytes at a data-dependent address; the stack of a
+// 48 x 480 x 640 run (29 MB) sits in the 50 MB L2, so the copies are L2
+// hits.  Design: a
 // persistent grid (blocks = SMs x occupancy); a block walks the steps
 // blockIdx.x, blockIdx.x + gridDim.x, ...; per step its first S threads derive
 // the S window origins and fractions from (image, cx, cy); all 256 threads
@@ -57,17 +59,18 @@ __host__ __device__ inline int row_bytes_of(int win) {
   return (kChunk - 2 + 2 * win + kChunk - 1) / kChunk * kChunk;
 }
 
+template <int WID>
 __global__ void gather_tile_kernel(const __nv_bfloat16* __restrict__ gray,
                                    const int* __restrict__ img_idx,
                                    const float* __restrict__ centers,
                                    __nv_bfloat16* __restrict__ out, int m,
-                                   int n, int h, int w, int wid, int S,
-                                   int n_steps, int double_buffer,
-                                   int extract) {
+                                   int n, int h, int w, int S, int n_steps,
+                                   int double_buffer, int extract) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int side = 2 * wid + 1;
-  const int win = side + 1;
-  const int npix = side * side;
+  constexpr int wid = WID;
+  constexpr int side = Patch<WID>::kSide;
+  constexpr int win = Patch<WID>::kWin;
+  constexpr int npix = Patch<WID>::kPix;
   const int row_bytes = row_bytes_of(win);
   const int row_chunks = row_bytes / kChunk;
   const int tile_bytes = S * win * row_bytes;
@@ -147,9 +150,17 @@ __global__ void gather_tile_kernel(const __nv_bfloat16* __restrict__ gray,
       };
       __nv_bfloat16* o = out + static_cast<size_t>(s) * npix;
       if (extract) {
-        interpolate_normalize_store(
-            [&](int r, int c) { return __bfloat162float(element(r, c)); },
-            p.fx, p.fy, wid, lane, o);
+        const float gx = __fsub_rn(1.0f, p.fx);
+        const float gy = __fsub_rn(1.0f, p.fy);
+        normalize_and_emit<WID>(
+            [&](int r, int c) {
+              return bilinear(__bfloat162float(element(r, c)),
+                              __bfloat162float(element(r, c + 1)),
+                              __bfloat162float(element(r + 1, c)),
+                              __bfloat162float(element(r + 1, c + 1)), p.fx,
+                              p.fy, gx, gy);
+            },
+            lane, [&](int q, __nv_bfloat16 v) { o[q] = v; });
       } else {
         for (int q = lane; q < npix; q += 32) o[q] = element(q / side, q % side);
       }
@@ -208,28 +219,35 @@ extern "C" int sample_normalized_patches_tiled_bf16(
   const size_t shared = static_cast<size_t>(nbuf) *
                         (static_cast<size_t>(S) * win * row_bytes_of(win) +
                          static_cast<size_t>(S) * sizeof(SampleParams));
-  cudaError_t err = cudaSuccess;
-  if (shared > 48 * 1024) {
-    // Above 48 KB a block's shared memory is dynamic and opted into.
-    err = cudaFuncSetAttribute(gather_tile_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(shared));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  int device = 0, sms = 0, per_sm = 0;
-  err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, gather_tile_kernel, kThreads, shared);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int n_steps = (m + S - 1) / S;
-  const int blocks = n_steps < sms * per_sm ? n_steps : sms * per_sm;
-  gather_tile_kernel<<<blocks, kThreads, shared, stream>>>(
-      static_cast<const __nv_bfloat16*>(gray), img_idx, centers,
-      static_cast<__nv_bfloat16*>(out), m, n, h, w, wid, S, n_steps,
-      double_buffer, extract);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err = cudaErrorInvalidValue;
+  dispatch_wid(wid, [&](auto wid_c) {
+    auto kernel = gather_tile_kernel<decltype(wid_c)::value>;
+    if (shared > 48 * 1024) {
+      // Above 48 KB a block's shared memory is dynamic and opted into.
+      err = cudaFuncSetAttribute(kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(shared));
+      if (err != cudaSuccess) return;
+    }
+    int device = 0, sms = 0, per_sm = 0;
+    err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, shared);
+    if (err != cudaSuccess) return;
+    if (per_sm < 1) {
+      err = cudaErrorInvalidConfiguration;
+      return;
+    }
+    const int n_steps = (m + S - 1) / S;
+    const int blocks = n_steps < sms * per_sm ? n_steps : sms * per_sm;
+    kernel<<<blocks, kThreads, shared, stream>>>(
+        static_cast<const __nv_bfloat16*>(gray), img_idx, centers,
+        static_cast<__nv_bfloat16*>(out), m, n, h, w, S, n_steps,
+        double_buffer, extract);
+    err = cudaGetLastError();
+  });
+  return static_cast<int>(err);
 }

@@ -3,7 +3,9 @@
 Counterpart of ``sfm_tpu/ops/gather.py``.  ``sample_normalized_patches`` is
 the wrapper of kernel K2 (``csrc/gather.cu``, replacing the Pallas slab
 kernel); its plain version is ``normalize_descriptors(
-bilinear_sample_patches_stack(gray.float(), ...))`` cast to bf16.  The
+bilinear_sample_patches_stack(gray.float(), ...))`` cast to bf16, with
+``_inbounds`` for the mask.  On CUDA tensors a call is one device kernel:
+K2 writes the descriptors and the in-bounds mask.  The
 TPU kernel's row/lane slab packing and sample chunking are Mosaic
 artifacts and have no counterpart: the CUDA kernel computes each window's
 origin from (image, cx, cy) itself.
@@ -22,7 +24,7 @@ from sfm_tpu_torch.ops.ncc import _inbounds, bilinear_sample_patches_stack
 from sfm_tpu_torch.ops.patches import normalize_descriptors
 from sfm_tpu_torch.utils.build import kernel_library
 
-MAX_WID = 8  # the kernel keeps <= 10 values of a (2*8+1)^2 patch per lane
+MAX_WID = 8  # the kernel is instantiated for wid 0..8 (csrc/gather_common.cuh)
 
 
 def _sample_plain(gray, img, ctr, wid):
@@ -42,9 +44,9 @@ def sample_normalized_patches(gray, img_idx, centers, wid: int = 5):
 
     Returns (desc (..., side^2) bf16 zero-mean unit-norm, inbounds (...,)
     bool: the whole patch plus its interpolation support lies inside).
-    CUDA tensors go through kernel K2 (counted in
-    ``sample_normalized_patches.launches``); CPU tensors through the plain
-    version.
+    CUDA tensors go through kernel K2, which writes both outputs in one
+    launch (counted in ``sample_normalized_patches.launches``); CPU tensors
+    through the plain version.
     """
     if gray.dim() != 3 or gray.dtype != torch.bfloat16:
         raise TypeError(
@@ -71,18 +73,19 @@ def sample_normalized_patches(gray, img_idx, centers, wid: int = 5):
     m = img.shape[0]
     if on_cpu("sample_normalized_patches", gray, img, ctr):
         desc = _sample_plain(gray, img, ctr, wid)
+        inb = _inbounds(ctr[:, 0], ctr[:, 1], h, w, wid)
     else:
         desc = torch.empty((m, side * side), dtype=torch.bfloat16,
                            device=gray.device)
+        inb = torch.empty((m,), dtype=torch.bool, device=gray.device)
         if m:
             with launch_on(gray) as stream:
                 err = kernel_library().sample_normalized_patches_bf16(
                     gray.data_ptr(), img.data_ptr(), ctr.data_ptr(),
-                    desc.data_ptr(), m, n, h, w, wid, stream,
+                    desc.data_ptr(), inb.data_ptr(), m, n, h, w, wid, stream,
                 )
             check_launch("sample_normalized_patches", err)
             sample_normalized_patches.launches += 1
-    inb = _inbounds(ctr[:, 0], ctr[:, 1], h, w, wid)
     return desc.reshape(*batch_shape, side * side), inb.reshape(batch_shape)
 
 

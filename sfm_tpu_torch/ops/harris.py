@@ -4,6 +4,11 @@ Counterpart of ``sfm_tpu/ops/harris.py``.  ``harris_response`` is the
 wrapper of kernel K1 (``csrc/harris.cu``, replacing the Pallas
 ``_harris_kernel``); its plain PyTorch version is ``_harris_math``.
 
+The kernel is bit-equal to ``_harris_math`` on integer gray (0..255, what
+the pipeline feeds: every Sobel and box sum is exact in float32 there); it
+takes the 3x3 box sums separably, so on other input its response may differ
+in the last bits (see the note in ``csrc/harris.cu``).
+
 One border convention: the kernel computes exactly what ``_harris_math``
 computes — zero-filled neighbours everywhere, no forced-zero columns.  (The
 TPU kernel also zeroes columns 0, 1, W-2, W-1; ``detect_corners`` takes the

@@ -19,6 +19,7 @@ import functools
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -39,6 +40,26 @@ NVCC_FLAGS = [
     "-fmad=false", "-Xptxas", "-v",
 ]
 GXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17"]
+
+_PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# ctypes argument types of every ``extern "C" int name(...)`` in csrc/*.cu,
+# in the declared order: pointers and the stream as c_void_p (ctypes would
+# pass a Python int as a 32-bit int and cut the pointer).  Every entry point
+# returns cudaGetLastError() as an int.
+KERNEL_ARGTYPES = {
+    # img, out, n, h, w, k, stream
+    "harris_response_f32": [_PTR, _PTR, _I32, _I32, _I32, _F32, _PTR],
+    # gray, img_idx, centers, out, inbounds, m, n, h, w, wid, stream
+    "sample_normalized_patches_bf16": [
+        _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _I32, _PTR,
+    ],
+    # gray, img_idx, centers, out, m, n, h, w, wid, samples_per_block,
+    # double_buffer, extract, stream
+    "sample_normalized_patches_tiled_bf16": [
+        _PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _I32, _I32, _I32,
+        _I32, _PTR,
+    ],
+}
 
 
 def _find_nvcc() -> str:
@@ -84,33 +105,57 @@ def _build(name: str, compiler: str, flags, sources, headers=()) -> str:
     return out
 
 
+_ENTRY_POINT = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)')
+
+
+def declared_entry_points(csrc_dir: str = CSRC_DIR) -> dict:
+    """The ``extern "C" int name(...)`` entry points declared in
+    ``csrc_dir``'s ``*.cu``, as name -> ctypes argument types read off the
+    declaration: a pointer or the stream is c_void_p, ``float`` c_float,
+    ``int`` c_int."""
+    found = {}
+    for src in sorted(glob.glob(os.path.join(csrc_dir, "*.cu"))):
+        with open(src) as f:
+            text = f.read()
+        for name, params in _ENTRY_POINT.findall(text):
+            types = []
+            for param in params.split(","):
+                words = param.replace("*", " * ").split()[:-1]  # drop the name
+                if "*" in words or "cudaStream_t" in words:
+                    types.append(_PTR)
+                elif words == ["float"]:
+                    types.append(_F32)
+                elif words == ["int"]:
+                    types.append(_I32)
+                else:
+                    raise ValueError(f"{src}: {name}: parameter {param!r}")
+            found[name] = types
+    return found
+
+
+def build_kernels(csrc_dir: str = CSRC_DIR) -> str:
+    """Path of the library nvcc builds from ``csrc_dir``'s ``*.cu`` (once);
+    its output (``-Xptxas -v``) lies beside it as ``.log``."""
+    sources = sorted(glob.glob(os.path.join(csrc_dir, "*.cu")))
+    headers = sorted(glob.glob(os.path.join(csrc_dir, "*.cuh")))
+    return _build("sfm_kernels", _find_nvcc(), NVCC_FLAGS, sources, headers)
+
+
 @functools.lru_cache(maxsize=None)
 def kernel_library() -> ctypes.CDLL:
     """The CUDA kernels, built by nvcc on first call and loaded once."""
-    sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
-    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
-    lib = ctypes.CDLL(
-        _build("sfm_kernels", _find_nvcc(), NVCC_FLAGS, sources, headers)
-    )
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.harris_response_f32.argtypes = [ptr, ptr, i32, i32, i32, f32, ptr]
-    lib.harris_response_f32.restype = i32
-    lib.sample_normalized_patches_bf16.argtypes = [
-        ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr,
-    ]
-    lib.sample_normalized_patches_bf16.restype = i32
-    lib.sample_normalized_patches_tiled_bf16.argtypes = [
-        ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, ptr,
-    ]
-    lib.sample_normalized_patches_tiled_bf16.restype = i32
+    lib = ctypes.CDLL(build_kernels())
+    for name, argtypes in KERNEL_ARGTYPES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = _I32
     return lib
 
 
 def kernel_build_log() -> str:
     """nvcc's output (``-Xptxas -v``: registers, shared memory, spills) from
     the build of the loaded kernel library."""
-    lib = kernel_library()
-    with open(lib._name[:-3] + ".log") as f:
+    with open(kernel_library()._name[:-3] + ".log") as f:
         return f.read()
 
 

@@ -11,7 +11,11 @@ reading nothing outside the stack; phase 11's K2s (the sharded wrapper) on
 current (skipped below two GPUs); and K3 (the tile-resident sampler) in its
 three modes at S = 8, 32, 128 against its plain versions and against K2, on
 the tool's case, an expansion round's centres, non-finite centres and the
-edges of a guarded and of an odd-width stack.  Marked ``cuda``; each test skips where
+edges of a guarded and of an odd-width stack.  Also K1 on shapes off the
+main path (odd width, tiny images, a 4-byte-aligned stack, non-integer
+gray) and what K2's one-launch design adds: its mask on the in-bounds
+limits, M = 1, 7 and 163,843, wid 0, 2 and 8, guarded and odd-width stacks,
+and one device kernel per call.  Marked ``cuda``; each test skips where
 ``torch.cuda.is_available()`` is False.  On the card (tests/conftest.py
 imports jax, which the card's machine lacks):
 
@@ -56,6 +60,41 @@ def test_k1_bit_equal(smoke, stack):
     out = smoke.check_k1(stack)
     assert out["max_abs_err"] == 0.0
     assert harris_response.launches > before
+
+
+def test_k1_shapes_off_the_main_path(smoke, stack):
+    from sfm_tpu_torch.ops.harris import harris_response
+
+    before = harris_response.launches
+    out = smoke.check_k1_shapes(stack.device)
+    assert out["nonint_rel_err"] <= 1e-5
+    assert harris_response.launches == before + 7
+
+
+def test_k2_mask_partial_blocks_and_widths(smoke, stack):
+    from sfm_tpu_torch.ops.gather import sample_normalized_patches
+
+    _, (img_f, ctr_f) = smoke.k2_inputs(stack, torch.zeros(
+        (stack.shape[0], 1, 2), dtype=torch.int32, device=stack.device))
+    before = sample_normalized_patches.launches
+    out = smoke.check_k2_redesign(stack.to(torch.bfloat16), img_f, ctr_f)
+    assert out["max_abs_err"] <= smoke.K2_FRAC_ATOL
+    # limits, M = 163,843, 1 and 7, three widths, two stacks
+    assert sample_normalized_patches.launches == before + 9
+
+
+def test_k2_call_is_one_device_kernel(smoke, stack):
+    from sfm_tpu_torch.ops.gather import sample_normalized_patches
+
+    g = stack.to(torch.bfloat16)
+    _, (img_f, ctr_f) = smoke.k2_inputs(stack, torch.zeros(
+        (stack.shape[0], 1, 2), dtype=torch.int32, device=stack.device))
+    where = smoke.host_and_device(
+        lambda: sample_normalized_patches(g, img_f, ctr_f, smoke.WID))
+    assert where["launches"] == 1.0
+    desc, inb = sample_normalized_patches(g, img_f, ctr_f, smoke.WID)
+    assert inb.dtype == torch.bool and inb.shape == img_f.shape
+    assert desc.shape == (img_f.shape[0], (2 * smoke.WID + 1) ** 2)
 
 
 def test_k2_within_bounds(smoke, stack):
