@@ -29,7 +29,13 @@ entry point ``sfm_tpu_torch.tools.prof_tile``; MVS with the outlier filter
 (its K2 launch counted, the device filter held to the host oracle); MVS
 killed after two rounds and resumed from its checkpoint, and the CLI with
 ``--checkpoint_dir`` then ``--stages mvs`` alone; joint bundle adjustment
-with both camera solvers.  It prints as its last
+with both camera solvers.  Then all-pairs mode: SfM over the ring's 1,128
+pairs (K1 and K2 counted, peak device memory against the pair program's
+chunk budget, and once more in a single chunk), points-only and joint BA
+and MVS on its tracks, and the sequential stage forced into three chunks;
+and the CLI with ``--nonSequence --profile_dir`` (plus ``--debug --plot``
+where matplotlib is installed), whose trace must name K1's and K2's device
+kernels.  It prints as its last
 line ``{"ok": true, "device": {...}}``.  Any failed check raises and the exit
 code is nonzero.  Without CUDA it exits 1 and prints no result.  Imports
 nothing of JAX.
@@ -41,6 +47,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -429,26 +436,33 @@ def host_and_device(fn, calls=50):
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     marker = torch.empty(1024, device="cuda")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            marker.fill_(0.0)
-        torch.cuda.synchronize()
-        time.sleep(0.002)  # far more than the host and device clocks differ by
-        with record_function("counted_window"):
-            time.sleep(0.002)
-            for _ in range(calls):
-                fn()
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                marker.fill_(0.0)
             torch.cuda.synchronize()
-    events = prof.events()
-    opened = [e.time_range.start for e in events if e.name == "counted_window"
-              and e.device_type == torch.autograd.DeviceType.CPU]
-    check(len(opened) >= 1, "the counted window is not in the profile")
-    # (the profiler lists the window a second time, as a device-side span)
-    device = [e for e in events
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.name != "counted_window"]
-    kern = [e for e in device if e.time_range.start >= min(opened)]
-    check(len(kern) < len(device), "no marker fill seen before the window")
+            time.sleep(0.002)  # far more than the host and device clocks differ by
+            with record_function("counted_window"):
+                time.sleep(0.002)
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+        events = prof.events()
+        opened = [e.time_range.start for e in events if e.name == "counted_window"
+                  and e.device_type == torch.autograd.DeviceType.CPU]
+        check(len(opened) >= 1, "the counted window is not in the profile")
+        # (the profiler lists the window a second time, as a device-side span)
+        device = [e for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.name != "counted_window"]
+        kern = [e for e in device if e.time_range.start >= min(opened)]
+        if len(kern) < len(device):
+            break
+        # Every fill was lost, so the window's own first kernels may have
+        # been too: profile the window again.
+        log(f"profiler session {attempt + 1}: no marker fill seen; again")
+    check(len(kern) < len(device), "no marker fill seen before the window "
+          "in three profiler sessions")
     return {"host_us": (t1 - t0) / calls * 1e6,
             "with_device_us": (t2 - t0) / calls * 1e6,
             "launches": len(kern) / calls,
@@ -481,6 +495,14 @@ def gather_bound(gray_bf16, m):
     return bound(nbytes, m * side * side * 14)
 
 
+def kernel_named(name, base):
+    """Whether a device kernel's name is ``base``'s (K1 ``harris_kernel``,
+    K2 ``gather_kernel``, K3 ``gather_tile_kernel``) and not another
+    kernel's that contains it, such as PyTorch's
+    ``vectorized_gather_kernel``."""
+    return re.search(rf"\b{base}\b", name) is not None
+
+
 def kernel_only_ms(fn, name_part, calls=20):
     """Device time per call of the kernels whose name contains
     ``name_part``, under torch.profiler: the kernel alone, apart from the
@@ -500,7 +522,7 @@ def kernel_only_ms(fn, name_part, calls=20):
         torch.cuda.synchronize()
     us = [e.time_range.elapsed_us() for e in prof.events()
           if e.device_type == torch.autograd.DeviceType.CUDA
-          and name_part in e.name]
+          and kernel_named(e.name, name_part)]
     # The profiler may lose the first events of a session (hence the fills
     # that open it): average those seen.
     check(calls // 2 <= len(us) <= calls,
@@ -654,13 +676,14 @@ def sphere_bounds(world):
     return float(np.median(r)), float(np.percentile(r, 95))
 
 
-def run_sfm(images, calib, kernels, mesh=None):
+def run_sfm(images, calib, kernels, mesh=None, pair_mode="sequence"):
     import torch
 
-    from sfm_tpu_torch.config import PipelineConfig, RuntimeConfig
+    from sfm_tpu_torch.config import PipelineConfig, RuntimeConfig, SfmConfig
     from sfm_tpu_torch.sfm import structure_from_motion
 
-    cfg = PipelineConfig(runtime=RuntimeConfig(device="cuda", kernels=kernels))
+    cfg = PipelineConfig(sfm=SfmConfig(pair_mode=pair_mode),
+                         runtime=RuntimeConfig(device="cuda", kernels=kernels))
     # A fresh copy misses the per-process grayscale cache (io.device_gray),
     # so the stage pays its conversion and upload, as a first stage does.
     images = images.copy()
@@ -788,7 +811,7 @@ def profile_mvs(images, recon, smi):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     k2_ms = sum(e.time_range.elapsed_us() for e in kernels
-                if "gather_kernel" in e.name) / 1e3
+                if kernel_named(e.name, "gather_kernel")) / 1e3
     check(k2_ms > 0, "the profiler saw no K2 kernel in the MVS run")
     ka = prof.key_averages()
     log(f"one MVS stage under the profiler: wall {wall:.4f} s, "
@@ -1012,6 +1035,264 @@ def run_stages_on_mesh(mesh, images, calib, unsharded):
     return {"sfm_s": s_wall, "ba_s": b_wall, "mvs_s": sm_wall,
             "sfm_pair_geometry_s": srecon.timers.times["pair_geometry"],
             "mvs_rounds": rounds, "sfm_launches": l_sfm, "mvs_launches": l_mvs}
+
+
+def mean_track_length(recon):
+    return recon.num_observations / max(recon.num_tracks, 1)
+
+
+@contextlib.contextmanager
+def budget_patched(pairs):
+    """A context in which a chunk of the pair program holds ``pairs`` pairs
+    (the chunk budget set to that many pairs' working set)."""
+    from sfm_tpu_torch.config import PipelineConfig
+    from sfm_tpu_torch.sfm import pipeline
+
+    per_pair = pipeline.pair_working_bytes(PipelineConfig())
+    real = pipeline.chunk_budget_bytes
+    pipeline.chunk_budget_bytes = lambda device: pairs * per_pair
+    try:
+        yield
+    finally:
+        pipeline.chunk_budget_bytes = real
+
+
+def run_allpairs(images, calib, seq4, smi):
+    """Phase 18: all-pairs SfM (1,128 pairs on 48 frames) at the CLI
+    defaults with the CUDA kernels, K1 / K2 counted from 0 around the stage
+    and the peak device memory reset before it; the same stage with every
+    pair in one chunk (its peak measured; an out-of-memory there is logged,
+    not failed); points-only and joint BA and MVS on its result; and the
+    sequential problem forced into >= 3 chunks, held to phase 4's."""
+    import numpy as np
+    import torch
+
+    from sfm_tpu_torch.config import PipelineConfig
+    from sfm_tpu_torch.ops.gather import (
+        sample_normalized_patches,
+        sample_normalized_patches_sharded,
+    )
+    from sfm_tpu_torch.ops.harris import harris_response
+    from sfm_tpu_torch.sfm import pipeline
+
+    counted = (harris_response, sample_normalized_patches,
+               sample_normalized_patches_sharded)
+
+    def zero_counts():
+        for fn in counted:
+            fn.launches = 0
+
+    def counts():
+        return {fn.__name__: fn.launches for fn in counted}
+
+    dev = torch.device("cuda")
+    cfg = PipelineConfig()
+    n, h, w = images.shape[:3]
+    n_pairs = n * (n - 1) // 2
+    per_pair = pipeline.pair_working_bytes(cfg)
+    budget = pipeline.chunk_budget_bytes(dev)
+    k, m = cfg.features.max_corners, cfg.features.max_matches
+    d = (2 * cfg.features.desc_wid + 1) ** 2
+    # What the stage holds besides a chunk's working set: the gray stack
+    # (f32 and its bf16 copy), K1's response, the feature set, RANSAC's
+    # uniforms (f64) and the pair outputs.
+    resident = (n * h * w * (4 + 2 + 4) + n * k * (8 + 1 + 4 * d)
+                + n_pairs * cfg.ransac.num_hypotheses * 8 * 8
+                + n_pairs * (m * 8 * 4 + 4 * 4 + 9 * 4))
+    out = {"pairs": n_pairs, "per_pair_bytes": per_pair,
+           "chunk_budget_bytes": budget, "resident_bytes": resident,
+           "pairs_per_chunk": pipeline.pairs_per_chunk(cfg, dev)}
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    recon, wall = run_sfm(images, calib, kernels=True, pair_mode="combination")
+    out["launches"] = counts()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    mv = recon.metrics.values
+    med, p95 = sphere_bounds(recon.world)
+    out.update(sfm_s=wall, chunks=mv["pair_chunks"], tracks=recon.num_tracks,
+               observations=recon.num_observations,
+               mean_track_length=mean_track_length(recon),
+               longest_track=int(recon.track_lengths().max()),
+               pair_reproj_px=mv["mean_pair_reprojection_error_px"],
+               sphere_median=med, sphere_p95=p95,
+               timers={k_: round(v, 4) for k_, v in recon.timers.times.items()})
+    log(f"all-pairs SfM (kernels) on {smi}: " + json.dumps(out))
+    check(mv["num_pairs"] == n_pairs, f"all-pairs ran {mv['num_pairs']} pairs")
+    check(out["launches"]["harris_response"] == 1
+          and out["launches"]["sample_normalized_patches"] == 1,
+          f"all-pairs SfM launches {out['launches']}: not one K1 and one K2")
+    # More pairs link more observations into longer tracks; the track
+    # store also drops a track whose new point strays past the merge
+    # threshold (the reference's invalidate-on-violation), which wide
+    # baselines do more often, so the track count itself may fall.
+    check(recon.num_tracks > 500 and recon.num_observations >= seq4.num_observations,
+          f"all-pairs: {recon.num_tracks} tracks, {recon.num_observations} "
+          f"observations (sequential {seq4.num_observations})")
+    check(out["mean_track_length"] > mean_track_length(seq4),
+          "all-pairs tracks are not longer than the sequential ones")
+    check(mv["mean_pair_reprojection_error_px"] < 0.3, "all-pairs pair reproj")
+    check(med < 0.01 and p95 < 0.05, f"all-pairs sphere bounds {med} {p95}")
+    check(out["peak_bytes"] <= budget + resident,
+          f"all-pairs peak {out['peak_bytes']} > chunk budget {budget} + "
+          f"resident {resident}")
+
+    # Where the stage's device time goes, under torch.profiler (opened with
+    # marker fills: the profiler may lose a session's first events).
+    from torch.profiler import ProfilerActivity, profile
+
+    marker = torch.empty(1024, device=dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(32):
+            marker.fill_(0.0)
+        torch.cuda.synchronize()
+        _, p_wall = run_sfm(images, calib, kernels=True, pair_mode="combination")
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in kern:
+        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    out["profiled"] = {"wall_s": p_wall,
+                       "device_busy_ms": sum(by_name.values()),
+                       "top_device_ms": [[k_, round(v, 3)] for k_, v in top]}
+    log("all-pairs SfM under the profiler: " + json.dumps(out["profiled"]))
+
+    # Every pair in one chunk: the working set the chunking bounds.
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with budget_patched(n_pairs):
+            one, one_wall = run_sfm(images, calib, kernels=True,
+                                    pair_mode="combination")
+        same = (one.num_observations == recon.num_observations
+                and np.array_equal(one.track_obs, recon.track_obs))
+        unchunked = {"sfm_s": one_wall, "chunks": one.metrics.values["pair_chunks"],
+                     "peak_bytes": torch.cuda.max_memory_allocated(),
+                     "tracks": one.num_tracks, "track_obs_equal": same,
+                     "pair_geometry_s": one.timers.times["pair_geometry"]}
+        check(abs(one.num_tracks - recon.num_tracks) <= 0.005 * recon.num_tracks,
+              "one chunk and chunked all-pairs tracks within 0.5 %")
+    except torch.cuda.OutOfMemoryError as e:
+        unchunked = {"out_of_memory": str(e).splitlines()[0]}
+    torch.cuda.empty_cache()
+    out["unchunked"] = unchunked
+    log(f"all-pairs SfM in one chunk of {n_pairs} pairs: " + json.dumps(unchunked))
+
+    # Points-only BA, then joint BA, on the all-pairs tracks.
+    base = sparse_copy(recon)
+    brecon, binfo, rms_before, b_wall = run_ba(sparse_copy(recon))
+    rms_after = brecon.rms_reprojection_error()
+    out["ba"] = {"iterations": binfo["iterations"], "rms_before_px": rms_before,
+                 "rms_after_px": rms_after, "wall_s": b_wall}
+    log("all-pairs points-only BA: " + json.dumps(out["ba"]))
+    check(rms_after < 0.3 and rms_after <= rms_before, "all-pairs BA rms")
+    torch.cuda.reset_peak_memory_stats()
+    jrec, jinfo, j_before, j_wall = run_joint_ba(base, 256)
+    out["joint_ba"] = {
+        "camera_solver": jinfo["camera_solver"],
+        "decided_by": jinfo["ba_dense_schur_decided_by"],
+        "pairs": jinfo["ba_dense_schur_pairs"],
+        "pair_bytes": jinfo["ba_dense_schur_pair_bytes"],
+        "grid_bytes": jinfo["ba_dense_schur_grid_bytes"],
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "iterations": jinfo["iterations"], "rms_before_px": j_before,
+        "rms_refined_px": jinfo["rms_reproj_refined_px"],
+        "points_only_refined_px": binfo["rms_reproj_refined_px"],
+        "wall_s": j_wall, "solve_s": jinfo["timers"]["solve"]}
+    log("all-pairs joint BA: " + json.dumps(out["joint_ba"]))
+    check(jinfo["camera_solver"] == "dense_schur",
+          f"all-pairs joint BA solver {jinfo['camera_solver']}")
+    check(jinfo["rms_reproj_refined_px"] <= binfo["rms_reproj_refined_px"] + 1e-4,
+          "all-pairs joint optimum above the points-only one")
+
+    # MVS on the points-only result, with the phase-9 gates.
+    zero_counts()
+    dense, m_wall = run_mvs(images, brecon, kernels=None)
+    l_mvs = counts()
+    med, p90, outward = dense_bounds(dense.points, dense.normals)
+    out["mvs"] = {"seeds": dense.num_seeds, "points": dense.num_points,
+                  "rounds": dense.metrics.values["mvs_rounds"], "wall_s": m_wall,
+                  "median": med, "p90": p90, "outward": outward,
+                  "launches": l_mvs}
+    log("all-pairs MVS: " + json.dumps(out["mvs"]))
+    check(l_mvs["sample_normalized_patches"] > 0 and l_mvs["harris_response"] == 0,
+          "all-pairs MVS launches")
+    check(dense.num_points > 10000 and med < 0.02 and p90 < 0.06
+          and outward > 0.9, "all-pairs MVS dense gates")
+
+    # The sequential problem forced into >= 3 chunks.
+    with budget_patched(16):
+        srecon, s_wall = run_sfm(images, calib, kernels=True)
+    chunks = srecon.metrics.values["pair_chunks"]
+    same = np.array_equal(srecon.track_obs, seq4.track_obs)
+    out["sequential_chunked"] = {"chunks": chunks, "tracks": srecon.num_tracks,
+                                 "phase4_tracks": seq4.num_tracks,
+                                 "track_obs_equal": same, "sfm_s": s_wall}
+    log("sequential SfM in chunks of 16 pairs: " + json.dumps(out["sequential_chunked"]))
+    check(chunks >= 3, f"sequential run in {chunks} chunks")
+    check(abs(srecon.num_tracks - seq4.num_tracks) <= 0.005 * seq4.num_tracks,
+          "chunked sequential tracks within 0.5 % of phase 4's")
+    return out
+
+
+def run_cli_flags(ds, par, tmp):
+    """Phase 19: the CLI with --nonSequence and --profile_dir (plus --debug
+    and --plot where matplotlib imports) on phase 10's dataset; the trace
+    must name K1's and K2's device kernels."""
+    from sfm_tpu_torch.cli import TRACE_FILE
+    from sfm_tpu_torch.cli import main as cli_main
+    from sfm_tpu_torch.io.ply import read_ply
+    from sfm_tpu_torch.ops.gather import sample_normalized_patches
+    from sfm_tpu_torch.ops.harris import harris_response
+
+    try:
+        import matplotlib  # noqa: F401
+        figures = True
+    except ImportError:
+        figures = False
+    out, prof = os.path.join(tmp, "out_flags"), os.path.join(tmp, "prof")
+    flags = ["--nonSequence", "--profile_dir", prof]
+    if figures:
+        flags += ["--debug", "--plot"]
+    log(f"CLI flags phase: {' '.join(flags)} (matplotlib "
+        f"{'imports' if figures else 'is not installed: --debug, --plot skipped'})")
+    harris_response.launches = sample_normalized_patches.launches = 0
+    t0 = time.perf_counter()
+    rc = cli_main(["-img_p", ds, "-par_p", par, "-t", "png", "--out_dir", out]
+                  + flags)
+    wall = time.perf_counter() - t0
+    launched = {"harris_kernel": harris_response.launches,
+                "gather_kernel": sample_normalized_patches.launches}
+    check(rc == 0, f"CLI {' '.join(flags)} exit code {rc}")
+    sizes = {}
+    for name in ("sparse_points", "sparse_points_ba", "initial_patches",
+                 "all_patches"):
+        sizes[name] = read_ply(os.path.join(out, name + ".ply"))[0].shape[0]
+    check(min(sizes.values()) > 0, f"CLI PLY files {sizes}")
+    path = os.path.join(prof, TRACE_FILE)
+    with open(path) as fh:
+        trace = json.load(fh)
+    kernels = [e.get("name", "") for e in trace["traceEvents"]
+               if e.get("cat") == "kernel"]
+    named = {k: sum(kernel_named(e, k) for e in kernels)
+             for k in ("harris_kernel", "gather_kernel")}
+    pngs = sorted(f for f in os.listdir(out) if f.endswith(".png"))
+    res = {"wall_s": wall, "ply_points": sizes, "trace_bytes": os.path.getsize(path),
+           "trace_events": len(trace["traceEvents"]),
+           "device_kernels": len(kernels), "named": named,
+           "wrapper_launches": launched, "pngs": pngs}
+    log("CLI flags: " + json.dumps(res))
+    check(min(launched.values()) >= 1, f"the CLI run launched {launched}")
+    check(named["harris_kernel"] >= 1 and named["gather_kernel"] >= 1,
+          f"the trace does not name K1 and K2: {named}")
+    if figures:
+        check({"sparse_before_ba.png", "sparse_after_ba.png", "dense.png"}
+              <= set(pngs) and any(p.startswith("debug_epipolar_") for p in pngs),
+              f"CLI figures {pngs}")
+    return res
 
 
 def main() -> int:
@@ -1399,7 +1680,6 @@ def main() -> int:
         log(f"CLI --checkpoint_dir in {ck_wall:.2f} s (sfm.npz, ba.npz), then "
             f"--stages mvs alone from the files in {mvs_only_wall:.2f} s: "
             f"{b[0].shape[0]} dense points, the same cloud")
-    tmp_cli.cleanup()
 
     # --- 17. joint bundle adjustment, both camera solvers --------------------
     joint = {}
@@ -1425,6 +1705,14 @@ def main() -> int:
     gap = abs(joint["dense_schur"]["rms_refined_px"] - joint["pcg"]["rms_refined_px"])
     log(f"joint BA: dense and PCG refined rms differ by {gap:.2e} px")
     check(gap <= 1e-3, f"dense and PCG rms differ by {gap} px > 1e-3")
+    # --- 18. all-pairs SfM, BA and MVS; the sequential run in chunks -------
+    allpairs = run_allpairs(images, calib, sparse4, smi)
+
+    # --- 19. the CLI with --nonSequence, --profile_dir (--debug, --plot) ----
+    if have_pil:
+        run_cli_flags(ds, par, tmp_cli.name)
+    tmp_cli.cleanup()
+
     log(f"stage walls at {SHARDS} virtual shards on {smi}: " + json.dumps({
         "sfm_s": sh["sfm_s"], "ba_s": sh["ba_s"], "mvs_s": sh["mvs_s"],
         "sfm_unsharded_s": wall, "ba_unsharded_s": ba_wall,
@@ -1443,6 +1731,7 @@ def main() -> int:
          "source": "sfm_tpu_torch/csrc/harris.cu",
          "replaces": "sfm_tpu/ops/harris.py:79",
          "launches": launches["harris_response"],
+         "launches_allpairs": allpairs["launches"]["harris_response"],
          "max_abs_err": k1["max_abs_err"], "ms": t["k1"], "plain_ms": t["k1_plain"],
          # f32 in, f32 out; ~55 operations per pixel (two Sobels, three
          # products, three 3x3 box sums, det - k trace^2).
@@ -1454,6 +1743,8 @@ def main() -> int:
          "source": "sfm_tpu_torch/csrc/gather.cu",
          "replaces": "sfm_tpu/ops/gather.py:112",
          "launches": launches["sample_normalized_patches"],
+         "launches_allpairs": allpairs["launches"]["sample_normalized_patches"],
+         "launches_allpairs_mvs": allpairs["mvs"]["launches"]["sample_normalized_patches"],
          "max_abs_err": max(k2.values()), "ms": t["k2_int"],
          "plain_ms": t["k2_int_plain"], **gather_bound(gray_bf16, img_i.numel()),
          "library_ms": None, "kernel_only_ms": kernel_only["k2_int"],

@@ -11,15 +11,20 @@ easy to find:
   a hand-written CUDA kernel (``csrc/``) beside its plain PyTorch version
 - ``sfm_tpu_torch.features``  — corner detection, descriptors, matcher
 - ``sfm_tpu_torch.sfm``       — RANSAC, track store, sparse pipeline
-- ``sfm_tpu_torch.ba``        — points-only Levenberg-Marquardt bundle adjustment
-- ``sfm_tpu_torch.mvs``       — seeding, photo-consistency, expansion rounds
+- ``sfm_tpu_torch.ba``        — Levenberg-Marquardt bundle adjustment,
+  points-only or joint (dense Schur or PCG camera solve)
+- ``sfm_tpu_torch.mvs``       — seeding, photo-consistency, expansion rounds,
+  the outlier filter
 - ``sfm_tpu_torch.parallel``  — the device mesh (one process driving several
   devices) and process-group set-up
-- ``sfm_tpu_torch.utils``     — metrics, timing, synthetic scenes, builds
+- ``sfm_tpu_torch.utils``     — metrics, timing, checkpoints, synthetic
+  scenes, builds, figures
 
-The main path (sfm, ba, mvs) is ported, single-device and over a mesh; joint
-BA, the outlier filter and checkpoints live in ``sfm_tpu`` only so far.
-This package never imports jax.
+Every stage and option of ``sfm_tpu``'s CLI is ported, single-device and
+over a mesh: sequential and all-pairs SfM, points-only and joint BA, MVS
+with the outlier filter, checkpoints in the JAX package's formats, and the
+``--plot`` / ``--debug`` figures and ``--profile_dir`` trace.  A mesh across
+processes is not.  This package never imports jax.
 """
 
 __version__ = "0.1.0"

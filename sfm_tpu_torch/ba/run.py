@@ -5,8 +5,9 @@ solve, write the refined world points back into the reconstruction.  With
 ``refine_cameras=False`` (the default: the reference's output contract
 keeps cameras at calibration) the cameras are frozen in the solve itself;
 ``refine_cameras=True`` runs the joint solve, its reduced camera system by a
-dense Cholesky solve up to ``dense_schur_max_cams`` cameras and by PCG above.
-The same ``info`` keys and ``recon.metrics`` records as the JAX package.
+dense Cholesky solve or by PCG (``dense_gate``).
+The same ``info`` keys and ``recon.metrics`` records as the JAX package,
+plus the dense gate's counts.
 Its ``defer_fetch`` / ``finalize`` and packed-solution fetch hide a
 remote-TPU link's latency and have no counterpart here (ROADMAP "Not to
 port").
@@ -19,12 +20,56 @@ import warnings
 import numpy as np
 import torch
 
-from sfm_tpu_torch.ba.problem import build_problem
+from sfm_tpu_torch.ba.problem import _pad_len, build_problem
 from sfm_tpu_torch.ba.sharded import solve_lm_sharded
-from sfm_tpu_torch.ba.solver import solve_lm
+from sfm_tpu_torch.ba.solver import pair_assembly_bytes, solve_lm
 from sfm_tpu_torch.config import BaConfig, RuntimeConfig
 from sfm_tpu_torch.sfm.pipeline import SparseReconstruction
 from sfm_tpu_torch.utils.metrics import StageTimer
+
+
+def dense_gate(recon: SparseReconstruction, config: BaConfig) -> dict:
+    """Whether the joint solve takes the dense reduced camera system, and
+    what decided it.
+
+    Dense only while all three hold, in this order: the camera count is at
+    most ``dense_schur_max_cams``; the JAX package's own bound,
+    4 * T * Nc * 144 bytes of its (T, Nc, 12, 3) scatter grids (unpadded
+    counts, ``sfm_tpu/ba/run.py`` letter for letter), is at most
+    ``dense_schur_max_bytes``; and this package's assembly over same-point
+    pairs (``solver.pair_assembly_bytes``: P = sum of squared track
+    lengths, at the BA dtype) fits the same bound.  The first two give
+    ``sfm_tpu``'s choice; the third can send a problem with long tracks to
+    PCG where ``sfm_tpu`` solves it densely (a deliberate difference: the
+    port's assembly grows with P, not with T * Nc).
+
+    Returns ``ba_dense_schur_pairs`` (P), ``ba_dense_schur_pair_bytes``,
+    ``ba_dense_schur_grid_bytes`` (the JAX package's count) and
+    ``ba_dense_schur_decided_by``: "dense", or the bound that sent the
+    problem to PCG ("max_cams", "grid_bytes", "pair_bytes"); "frozen" for
+    a points-only solve, "no_tracks" without tracks.
+    """
+    n_tracks, n_cams = recon.num_tracks, recon.calib.num_views
+    itemsize = 8 if config.dtype == "float64" else 4
+    pairs, pair_bytes = pair_assembly_bytes(
+        recon.track_lengths(), _pad_len(n_tracks, 1024), itemsize)
+    grid_bytes = 4 * n_tracks * n_cams * 144
+    if not config.refine_cameras:
+        decided = "frozen"
+    elif not n_tracks:
+        decided = "no_tracks"
+    elif n_cams > config.dense_schur_max_cams:
+        decided = "max_cams"
+    elif grid_bytes > config.dense_schur_max_bytes:
+        decided = "grid_bytes"
+    elif pair_bytes > config.dense_schur_max_bytes:
+        decided = "pair_bytes"
+    else:
+        decided = "dense"
+    return {"ba_dense_schur_pairs": pairs,
+            "ba_dense_schur_pair_bytes": pair_bytes,
+            "ba_dense_schur_grid_bytes": grid_bytes,
+            "ba_dense_schur_decided_by": decided}
 
 
 def bundle_adjust(
@@ -55,20 +100,13 @@ def bundle_adjust(
         warnings.warn(
             "BaConfig.dense_schur_max_span is deprecated and has no effect "
             "(the dense-Schur assembly does not depend on track length); "
-            "use dense_schur_max_cams to steer the solver choice",
+            "use dense_schur_max_cams / dense_schur_max_bytes to steer the "
+            "solver choice",
             DeprecationWarning,
             stacklevel=2,
         )
-    # Dense-Schur eligibility (joint mode only): S is (12 * Nc)^2, so gate
-    # on the camera count.  ``dense_schur_max_bytes`` bounded the JAX
-    # package's (T, Nc, 12, 3) scatter grids; the assembly here runs over
-    # same-point observation pairs and has no such grids, so the field
-    # stays for config parity and nothing reads it.
-    pair_span = int(
-        config.refine_cameras
-        and recon.num_tracks > 0
-        and recon.calib.num_views <= config.dense_schur_max_cams
-    )
+    gate = dense_gate(recon, config)
+    pair_span = int(gate["ba_dense_schur_decided_by"] == "dense")
     with timers.stage("solve"):
         solve = dict(
             max_iterations=config.max_iterations,
@@ -106,6 +144,9 @@ def bundle_adjust(
         ),
     }
     if config.refine_cameras:
+        info.update(gate)
+        for k, v in gate.items():
+            recon.metrics.record(k, v)
         # Without the problem's padded camera rows.
         info["cams11"] = cams[: recon.calib.num_views].cpu().numpy()
     recon.metrics.record("ba_final_cost", info["final_cost"])

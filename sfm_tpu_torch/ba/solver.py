@@ -29,6 +29,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from sfm_tpu_torch.ba.model import jacobian_blocks, total_cost
@@ -208,6 +209,27 @@ def _pair_structure(problem: BAProblem, point_table: torch.Tensor):
     blocks, lengths = torch.unique_consecutive(key[order], return_counts=True)
     return (oi[order], oj[order], pt[order], lengths,
             blocks // n_cams, blocks % n_cams)
+
+
+# Bytes per same-point pair while the dense assembly runs: the int64 index
+# lists of ``_pair_structure`` (nonzero's rows, oi, oj, the camera key and
+# its sort order) and, per LM iteration, the gathered operands and products
+# of ``_dense_schur_dc``'s einsum in floats: W_oi and W_oj (36 each),
+# V_lp^-1 (9), W_oi V_lp^-1 (36) and the 12 x 12 block (144).
+_PAIR_INDEX_BYTES = 80
+_PAIR_FLOATS = 261
+
+
+def pair_assembly_bytes(track_lengths, n_points: int, itemsize: int):
+    """(P, bytes) of the dense assembly on one device: P = sum of squared
+    track lengths (the same-point pairs), and the bytes of the (T, L, L)
+    bool mask (T the padded point count, L the longest track) plus P pairs
+    of index lists and float blocks at ``itemsize`` bytes a float."""
+    lengths = np.asarray(track_lengths, np.int64)
+    pairs = int((lengths * lengths).sum())
+    longest = int(lengths.max()) if lengths.size else 0
+    return pairs, (n_points * longest * longest
+                   + pairs * (_PAIR_INDEX_BYTES + _PAIR_FLOATS * itemsize))
 
 
 def _dense_schur_dc(mesh, shards, tables, blocks, U_lam, Vinv, g):

@@ -8,11 +8,16 @@ writes ``sparse_points.ply``, ``ba`` (points-only bundle adjustment)
 the MVS outlier filter, and ``--checkpoint_dir`` saves each stage's output
 there (``sfm.npz``, ``ba.npz``: the JAX package's files, readable by either
 package) plus the mid-MVS state every ``--mvs_checkpoint_every`` rounds, so
-``--stages ba,mvs`` or ``--stages mvs`` resume from them.  Flags whose
-machinery is not ported (``NOT_PORTED``) exit with code 2.
+``--stages ba,mvs`` or ``--stages mvs`` resume from them.
 ``--mesh_devices N`` (N > 1) runs every stage over one mesh of up to N
 devices of ``--device``'s kind (``run_mesh``); N <= 1 is a plain
-single-device run, as in ``sfm_tpu``.
+single-device run, as in ``sfm_tpu``.  ``--nonSequence`` matches all
+C(n, 2) image pairs.  ``--plot`` writes ``sparse_before_ba.png``,
+``sparse_after_ba.png`` and ``dense.png``, ``--debug`` the epipolar lines
+of the first three pairs (``debug_epipolar_{a}_{b}.png``); both need
+matplotlib (without it they exit 1).  ``--profile_dir DIR`` records the
+run with torch.profiler (host activity, and the GPU's on CUDA) and writes
+it as a Chrome trace, ``DIR/trace.json``.
 
 Run: ``python -m sfm_tpu_torch.cli -img_p DIR -par_p DIR/x_par.txt -t png
 [--stages sfm,ba,mvs] [--device cuda] [--mesh_devices N]``.
@@ -21,14 +26,13 @@ Run: ``python -m sfm_tpu_torch.cli -img_p DIR -par_p DIR/x_par.txt -t png
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
 
 STAGES = ("sfm", "ba", "mvs")
-# Flags of sfm_tpu/cli.py whose machinery is not ported (ROADMAP queue 1
-# item 13): each exits 2 instead of running the default path.
-NOT_PORTED = ("plot", "debug", "profile_dir")
+TRACE_FILE = "trace.json"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -45,7 +49,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-scale", type=float, default=1.0,
                    help="viz / MVS-radius scale multiplier")
     p.add_argument("--debug", action="store_true",
-                   help="epipolar debug overlays (not yet ported)")
+                   help="epipolar debug overlays (needs matplotlib)")
     p.add_argument("--nonSequence", action="store_true",
                    help="match all C(n,2) pairs instead of the sequential chain")
     p.add_argument("-cell_size", type=int, default=2)
@@ -73,8 +77,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint_dir", default=None)
     p.add_argument("--mvs_checkpoint_every", type=int, default=16)
     p.add_argument("--mesh_devices", type=int, default=None)
-    p.add_argument("--plot", action="store_true")
-    p.add_argument("--profile_dir", default=None)
+    p.add_argument("--plot", action="store_true",
+                   help="3-D scatter PNGs of the clouds (needs matplotlib)")
+    p.add_argument("--profile_dir", default=None,
+                   help="write a torch.profiler Chrome trace of the run here")
     p.add_argument("--device", default="cuda",
                    help="torch device of the run (cuda runs the CUDA kernels)")
     return p
@@ -151,9 +157,41 @@ def run_mesh(config):
     return data_mesh(num_devices=n, devices=devices)
 
 
+@contextlib.contextmanager
+def profiled(profile_dir, device):
+    """torch.profiler around the body when ``profile_dir`` is set (CPU
+    activity, plus CUDA on a CUDA device), exported as a Chrome trace to
+    ``profile_dir/TRACE_FILE`` when the body returns.  The profiler can
+    lose the first events of a session on a GPU, now and then more than
+    ten, so the session opens with 32 marker fills and a sync."""
+    if not profile_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    device = torch.device(device)
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        marker = torch.empty(1024, device=device)
+        for _ in range(32):
+            marker.fill_(0.0)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    path = os.path.join(profile_dir, TRACE_FILE)
+    prof.export_chrome_trace(path)
+    print(f"profiler trace written to {path}")
+
+
 def main(argv=None) -> int:
     """CLI entry point; bad input and pipeline errors exit 1 with a message,
-    an unknown stage or a flag that is not ported exits 2."""
+    an unknown stage exits 2."""
     try:
         return _main(argv)
     except (RuntimeError, FileNotFoundError, ValueError) as e:
@@ -168,19 +206,24 @@ def _main(argv=None) -> int:
     if unknown:
         print(f"error: unknown stage(s) {','.join(unknown)}", file=sys.stderr)
         return 2
-    for opt in NOT_PORTED:
-        if getattr(args, opt):
-            print(f"error: --{opt} not yet ported in sfm_tpu_torch",
-                  file=sys.stderr)
-            return 2
+    if args.plot or args.debug:
+        from sfm_tpu_torch.utils.viz import require_matplotlib
+
+        require_matplotlib()
     config = config_from_args(args)
-    device = config.runtime.device
     mesh = run_mesh(config)
     os.makedirs(args.out_dir, exist_ok=True)
+    with profiled(args.profile_dir, config.runtime.device):
+        return _run_stages(args, stages, config, mesh)
+
+
+def _run_stages(args, stages, config, mesh) -> int:
+    device = config.runtime.device
 
     from sfm_tpu_torch.io import load_images, read_pars
     from sfm_tpu_torch.io.ply import export_ply
     from sfm_tpu_torch.utils import checkpoint as ckpt
+    from sfm_tpu_torch.utils import viz
     from sfm_tpu_torch.utils.metrics import StageTimer
 
     timers = StageTimer()
@@ -213,6 +256,22 @@ def _main(argv=None) -> int:
         recon.export_ply(os.path.join(args.out_dir, "sparse_points.ply"))
         summary["sparse_tracks"] = recon.num_tracks
         summary["sparse_mean_reproj_px"] = mean_reproj
+        if args.debug and recon.debug_pairs is not None:
+            dp = recon.debug_pairs
+            for pi in range(min(3, len(dp["pairs"]))):
+                a, b = dp["pairs"][pi]
+                sel = dp["inlier"][pi]
+                viz.draw_epipolar_debug(
+                    images[a], images[b],
+                    dp["p1"][pi][sel], dp["p2"][pi][sel], dp["F"][pi],
+                    path=os.path.join(
+                        args.out_dir, f"debug_epipolar_{a}_{b}.png"
+                    ),
+                )
+        if args.plot:
+            viz.scatter3d(recon.world, scale=args.scale,
+                          title="without bundle adjustment",
+                          path=os.path.join(args.out_dir, "sparse_before_ba.png"))
 
     if "ba" in stages:
         if recon is None:
@@ -234,6 +293,10 @@ def _main(argv=None) -> int:
         recon.export_ply(os.path.join(args.out_dir, "sparse_points_ba.ply"))
         summary["ba_final_cost"] = info["final_cost"]
         summary["ba_rms_reproj_px"] = ba_rms
+        if args.plot:
+            viz.scatter3d(recon.world, scale=args.scale,
+                          title="with bundle adjustment",
+                          path=os.path.join(args.out_dir, "sparse_after_ba.png"))
 
     if "mvs" in stages:
         if recon is None:
@@ -264,6 +327,10 @@ def _main(argv=None) -> int:
         dense.export_ply(os.path.join(args.out_dir, "all_patches.ply"))
         summary["mvs_seeds"] = dense.num_seeds
         summary["mvs_points"] = dense.num_points
+        if args.plot:
+            viz.scatter3d(dense.points, dense.colors, scale=args.scale,
+                          title="reconstruct_results",
+                          path=os.path.join(args.out_dir, "dense.png"))
 
     summary["timers_s"] = {k: round(v, 3) for k, v in timers.times.items()}
     print(json.dumps(summary))

@@ -57,9 +57,10 @@ class BaConfig:
     """Bundle adjustment: Levenberg-Marquardt (ba/), points-only by default.
 
     ``refine_cameras=True`` runs the joint solve; its reduced camera system
-    is solved densely up to ``dense_schur_max_cams`` cameras and by PCG
-    above.  ``dense_schur_max_bytes`` (the JAX package's scatter-grid
-    bound) is read nowhere: the port's dense assembly has no such grids.
+    is solved densely while the camera count is at most
+    ``dense_schur_max_cams`` and both the JAX package's scatter-grid bytes
+    and the port's same-point pair bytes are at most
+    ``dense_schur_max_bytes``, and by PCG otherwise (``ba.run.dense_gate``).
     ``dense_schur_max_span`` is deprecated in both packages.
     """
 

@@ -76,3 +76,20 @@ def match_descriptors(
         valid=ok,
         count=ok.sum(dim=-1, dtype=torch.int32),
     )
+
+
+def matched_points(corners1, corners2, match: MatchResult):
+    """(..., M, 2) float32 pixel coordinates of each match in both images,
+    gathered from (..., K, 2) corners by ``match.idx1`` / ``match.idx2``."""
+
+    def take(cor, idx):
+        idx = idx.long()
+        return torch.gather(cor, -2, idx[..., None].expand(*idx.shape, 2)).float()
+
+    return take(corners1, match.idx1), take(corners2, match.idx2)
+
+
+def match_pair_gate(match: MatchResult, min_matches: int = 8):
+    """(...,) bool: pairs with at least ``min_matches`` matches (the
+    reference skips the others)."""
+    return match.count >= min_matches

@@ -102,3 +102,21 @@ def epipolar_distance(F, pts1, pts2):
     d1 = dot / torch.clamp_min(torch.sqrt(Fx1[..., 0] ** 2 + Fx1[..., 1] ** 2), _EPS)
     d2 = dot / torch.clamp_min(torch.sqrt(Ftx2[..., 0] ** 2 + Ftx2[..., 1] ** 2), _EPS)
     return 0.5 * (d1 + d2)
+
+
+def epipolar_lines(F, pts, which: int = 1):
+    """Epipolar lines (..., N, 3) as (a, b, c) with a^2 + b^2 = 1 (for debug
+    overlays).  which=1: lines in image 2 of points of image 1 (l = F x1);
+    which=2: lines in image 1 of points of image 2 (l = F^T x2)."""
+    x = _homog(pts)
+    if which == 1:
+        line = torch.einsum("...ij,...nj->...ni", F, x)
+    else:
+        line = torch.einsum("...ji,...nj->...ni", F, x)
+    scale = torch.sqrt(line[..., 0:1] ** 2 + line[..., 1:2] ** 2)
+    return line / torch.clamp_min(scale, _EPS)
+
+
+def essential_from_fundamental(F, K1, K2):
+    """E = K2^T F K1."""
+    return K2.transpose(-1, -2) @ F @ K1

@@ -19,10 +19,12 @@ an uninterrupted one.  With ``MvsConfig.enable_outlier_filter`` the
 accumulated cloud is re-scored in one sweep (K2's largest launch) and
 filtered on the device (``mvs/filter.py``).
 
-``MvsConfig.shape_buckets``, ``overlap_seed_fetch`` and ``rounds_per_call``
-are scheduling knobs of the JAX package (compile reuse, hiding a remote
-link's fetch latency) whose output is identical either way; they are read
-nowhere here.
+``MvsConfig.overlap_seed_fetch`` and ``rounds_per_call`` are scheduling
+knobs of the JAX package (hiding a remote link's fetch latency) whose output
+is identical either way; they are read nowhere here.  ``shape_buckets`` pads
+nothing the stage computes on: it only sets the width of the image axis in
+the state file, which ``sfm_tpu`` pads to ``bucket_images(n)`` when it is
+on (``_to_state_width``, ``_from_state_width``).
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ from sfm_tpu_torch.ops._launch import use_kernel
 from sfm_tpu_torch.parallel.mesh import DataMesh
 from sfm_tpu_torch.sfm.pipeline import SparseReconstruction
 from sfm_tpu_torch.utils import checkpoint as ckpt
+from sfm_tpu_torch.utils.buckets import bucket_images
 from sfm_tpu_torch.utils.metrics import Metrics, StageTimer
 
 # The expansion frontier consumes exactly these fields; seed dicts carry
@@ -210,14 +213,14 @@ def _run_device_filter(
 
 def _mvs_fingerprint(images, config, bound, scale) -> str:
     """Configuration fingerprint guarding mid-MVS checkpoint resumes: the
-    JAX package's v2 string, letter for letter (its ``crc`` is the last
-    field of ``io.images._cache_key``).
+    JAX package's v2 string, letter for letter, without its ``|nb{n}``
+    suffix (the state file's image-axis width, which the caller appends);
+    its ``crc`` is the last field of ``io.images._cache_key``.
 
     Budget knobs (max_rounds, max_patches) are deliberately excluded: a
     legitimate resume may raise them to continue a finished budget.  Shape,
     threshold and input knobs must match, or the restored occupancy and
-    frontier would not fit the run.  ``|nb{n}`` carries the image count
-    (the JAX package's bucket-padded count; the port pads nothing).
+    frontier would not fit the run.
     """
     n, h, w = images.shape[:3]
     return (
@@ -226,8 +229,46 @@ def _mvs_fingerprint(images, config, bound, scale) -> str:
         f"|bound{bound}|cap{config.round_capacity}"
         f"|views{resolve_photo_views(config.max_photo_views, n)}"
         f"|cop{config.coplanarity_threshold}|rad{config.neighbor_radius_scaled}"
-        f"|scale{scale}|filter{int(config.enable_outlier_filter)}|nb{n}"
+        f"|scale{scale}|filter{int(config.enable_outlier_filter)}"
     )
+
+
+# State arrays with an image axis, and where it is: occupancy (N, Cx, Cy);
+# frontier / backlog vis (F, N) and proj (F, N, 2).
+_IMAGE_AXIS = {"occupancy": 0, "f_vis": 1, "f_proj": 1, "b_vis": 1, "b_proj": 1}
+
+
+def _to_state_width(state: dict, n_state: int) -> dict:
+    """Pad the image axis of the state arrays to ``n_state`` (the JAX
+    package's bucketed width) with inert views: never occupied, never
+    visible, projected at (0, 0)."""
+    out = dict(state)
+    for k, axis in _IMAGE_AXIS.items():
+        if k in out:
+            a = out[k]
+            pad = [(0, 0)] * a.ndim
+            pad[axis] = (0, n_state - a.shape[axis])
+            out[k] = np.pad(a, pad)
+    return out
+
+
+def _from_state_width(state: dict, n: int) -> dict:
+    """Slice the image axis of the state arrays back to the ``n`` real
+    views; raises if a pad view was occupied or visible (a state that does
+    not come from an inert padding)."""
+    out = dict(state)
+    for k, axis in _IMAGE_AXIS.items():
+        if k not in out or out[k].shape[axis] == n:
+            continue
+        a = out[k]
+        if not k.endswith("proj") and np.take(a, range(n, a.shape[axis]),
+                                              axis=axis).any():
+            raise ValueError(
+                f"MVS checkpoint: {k} marks a padded view beyond the {n} "
+                "real images; the state is not from this input"
+            )
+        out[k] = np.take(a, range(n), axis=axis)
+    return out
 
 
 def dense_reconstruction(
@@ -291,19 +332,24 @@ def dense_reconstruction(
     # The expansion rounds' per-shard copies, made once for the stage.
     shards = tuple(mesh.replicate(x) for x in (gray, K, R, t))
 
-    fingerprint = (
+    # The state file's image axis: sfm_tpu's bucketed width when shape
+    # buckets are on (its default), else the real count; either is read.
+    n_state = bucket_images(n) if config.shape_buckets else n
+    base_fp = (
         _mvs_fingerprint(images, config, bound, scale) if checkpoint_dir else ""
     )
+    fingerprint = f"{base_fp}|nb{n_state}"
     state = ckpt.load_mvs_state(checkpoint_dir)
     resumed = state is not None
     if resumed:
         saved_fp = str(state["fingerprint"])
-        if saved_fp != fingerprint:
+        if saved_fp not in {f"{base_fp}|nb{m}" for m in (n, bucket_images(n))}:
             raise ValueError(
                 f"MVS checkpoint in {checkpoint_dir} was written with a "
                 f"different configuration/input ({saved_fp!r} != "
                 f"{fingerprint!r}); delete {ckpt.MVS_STATE_FILE} to restart"
             )
+        state = _from_state_width(state, n)
         occupancy = dev(state["occupancy"])
         frontier = {k: dev(state["f_" + k]) for k in _FRONTIER_KEYS}
         # Valid rows in the restored (not yet dispatched) frontier: the
@@ -384,7 +430,7 @@ def dense_reconstruction(
         if backlog:
             for k in _FRONTIER_KEYS:
                 st["b_" + k] = host(backlog[k])
-        ckpt.save_mvs_state(checkpoint_dir, st)
+        ckpt.save_mvs_state(checkpoint_dir, _to_state_width(st, n_state))
 
     last_ckpt_rounds = rounds
     backlog_merge_s = 0.0

@@ -62,3 +62,11 @@ def bilinear_sample_patches_stack(stack, img_idx, centers, wid: int = 5):
         val.reshape(*batch_shape, side * side).float(),
         _inbounds(x, y, h, w, wid).reshape(batch_shape),
     )
+
+
+def bilinear_sample_patches(gray, centers, wid: int = 5):
+    """``bilinear_sample_patches_stack`` on one (H, W) image: centers (M, 2)
+    float (x, y).  Returns (patches (M, side^2) float32, inbounds (M,)
+    bool)."""
+    img = torch.zeros(centers.shape[0], dtype=torch.long, device=centers.device)
+    return bilinear_sample_patches_stack(gray[None], img, centers, wid)

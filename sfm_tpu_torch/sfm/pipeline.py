@@ -7,16 +7,24 @@ batched tensor program with a leading pair axis (the JAX package maps the
 same step over pairs).  Only the track-store merge (hash-based,
 order-dependent) runs on the host, pair by pair in schedule order.
 
+The pair program runs over chunks of the pair axis, each sized so that
+its working set stays under a quarter of the device's memory
+(``pairs_per_chunk``): all-pairs mode (``pair_mode="combination"``, C(n, 2)
+pairs) would otherwise need memory in proportion to n^2.  The JAX package
+bounds it the same way with a ``lax.map`` over the pairs.  Chunks are
+independent, so any chunk size gives the same reconstruction.
+
 Feature detection is split over the image axis of a mesh
 (``parallel.DataMesh``) and the pair program over the pair axis, each shard
-on its own device (both are embarrassingly parallel), and the results are
-gathered on the lead device before the track store: the same
-reconstruction whatever the mesh.  A run without a mesh is a mesh of its
-one device.
+on its own device (both are embarrassingly parallel), chunked inside each
+shard, and the results are gathered on the lead device before the track
+store: the same reconstruction whatever the mesh.  A run without a mesh is
+a mesh of its one device.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
@@ -25,7 +33,11 @@ import torch
 
 from sfm_tpu_torch.config import PipelineConfig
 from sfm_tpu_torch.features.frontend import FeatureSet, detect_and_describe
-from sfm_tpu_torch.features.matching import match_descriptors
+from sfm_tpu_torch.features.matching import (
+    match_descriptors,
+    match_pair_gate,
+    matched_points,
+)
 from sfm_tpu_torch.geometry.projection import project_pinhole, projection_matrix
 from sfm_tpu_torch.geometry.triangulation import (
     refine_triangulation,
@@ -125,16 +137,8 @@ def pair_geometry(fs, ia, ib, K, R, t, config: PipelineConfig,
         lowe_ratio=fc.lowe_ratio, max_matches=fc.max_matches,
         mutual_check=fc.mutual_check,
     )
-    cor_a = fs.corners[ia]
-    cor_b = fs.corners[ib]
-
-    def take(cor, idx):
-        return torch.gather(cor, 1, idx.long()[..., None].expand(*idx.shape, 2))
-
-    p1 = take(cor_a, m.idx1).float()
-    p2 = take(cor_b, m.idx2).float()
-    enough = m.count >= fc.min_matches
-    valid = m.valid & enough[:, None]
+    p1, p2 = matched_points(fs.corners[ia], fs.corners[ib], m)
+    valid = m.valid & match_pair_gate(m, fc.min_matches)[:, None]
     if samples is None:
         samples = samples_from_uniforms(valid, uniforms)
     F, inliers, n_inl = ransac_fundamental(
@@ -170,27 +174,69 @@ def pair_geometry(fs, ia, ib, K, R, t, config: PipelineConfig,
     return geo, stats, F
 
 
+# Floats one pair holds at the peak of ``pair_geometry``, per element of its
+# largest intermediates: RANSAC's (H, M) hypothesis-by-match tensors (the
+# one-hot weights, the normalised points, the nine columns of the 8-point
+# design matrix and its weighted copy, then the Sampson lines) and
+# matching's (K, K) score matrices.  The two peaks do not overlap in time.
+_HM_FLOATS = 32
+_KK_FLOATS = 6
+
+
+def pair_working_bytes(config: PipelineConfig) -> int:
+    """Peak bytes one pair adds to ``pair_geometry``, from the shapes the
+    configuration gives it: H hypotheses, M matches, K corners and
+    descriptors of D values (the two images' descriptors gathered too)."""
+    fc = config.features
+    h, m, k = config.ransac.num_hypotheses, fc.max_matches, fc.max_corners
+    d = (2 * fc.desc_wid + 1) ** 2
+    return 4 * (max(_HM_FLOATS * h * m, _KK_FLOATS * k * k) + 2 * k * d
+                + 16 * m)
+
+
+def chunk_budget_bytes(device: torch.device) -> int:
+    """Bytes a chunk of the pair program may take on ``device``: a quarter
+    of its memory (the host's for the CPU)."""
+    if device.type == "cuda":
+        total = torch.cuda.get_device_properties(device).total_memory
+    else:
+        total = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    return total // 4
+
+
+def pairs_per_chunk(config: PipelineConfig, device: torch.device) -> int:
+    """Pairs in one chunk of the pair program on ``device`` (at least 1)."""
+    return max(1, chunk_budget_bytes(device) // pair_working_bytes(config))
+
+
 def _pair_geometry_on_mesh(fs, ia, ib, K, R, t, config, samples, uniforms,
                            mesh):
-    """``pair_geometry`` with the pair axis split over ``mesh``: features
-    and cameras replicated per device, pad pairs (0, 0) masked invalid
-    (``real``) with zero draws, the outputs gathered on the lead device
-    without the pad rows."""
+    """``pair_geometry`` with the pair axis split over ``mesh`` and each
+    shard's pairs run in chunks of ``pairs_per_chunk``: features and cameras
+    replicated per device, pad pairs (0, 0) masked invalid (``real``) with
+    zero draws, the draws sliced like the pairs, the outputs gathered on the
+    lead device without the pad rows.  Returns (geo, stats, F, chunks)."""
     n_pairs = ia.shape[0]
     real = torch.ones(n_pairs, dtype=torch.bool, device=ia.device)
     draws = samples if samples is not None else uniforms
+    given = "samples" if samples is not None else "uniforms"
     split = [mesh.split(x) for x in (ia, ib, real, draws)]
     reps = [mesh.replicate(x) for x in
             (fs.corners, fs.valid, fs.descriptors, K, R, t)]
-    outs = []
+    outs, chunks = [], 0
     for (ia_s, ib_s, real_s, draws_s), (cor, val, desc, K_s, R_s, t_s) in zip(
             zip(*split), zip(*reps)):
-        given = dict(samples=draws_s) if samples is not None else dict(uniforms=draws_s)
-        outs.append(pair_geometry(
-            FeatureSet(cor, val, desc), ia_s, ib_s, K_s, R_s, t_s, config,
-            real=real_s, **given,
-        ))
-    return tuple(mesh.gather(list(x), n_pairs) for x in zip(*outs))
+        step = pairs_per_chunk(config, ia_s.device)
+        parts = []
+        for c in range(0, max(ia_s.shape[0], 1), step):
+            parts.append(pair_geometry(
+                FeatureSet(cor, val, desc), ia_s[c:c + step], ib_s[c:c + step],
+                K_s, R_s, t_s, config, real=real_s[c:c + step],
+                **{given: draws_s[c:c + step]},
+            ))
+        chunks += len(parts)
+        outs.append(tuple(torch.cat(x) for x in zip(*parts)))
+    return (*(mesh.gather(list(x), n_pairs) for x in zip(*outs)), chunks)
 
 
 def structure_from_motion(
@@ -261,7 +307,7 @@ def structure_from_motion(
         if ransac_samples is None:
             gen = torch.Generator().manual_seed(config.runtime.seed)
             uniforms = draw_uniforms((n_pairs,), config.ransac.num_hypotheses, gen)
-        geo_d, stats_d, F_d = _pair_geometry_on_mesh(
+        geo_d, stats_d, F_d, chunks = _pair_geometry_on_mesh(
             fs, ia, ib, K, R, t, config, ransac_samples, uniforms, mesh,
         )
         geo = geo_d.cpu().numpy()
@@ -290,6 +336,7 @@ def structure_from_motion(
 
     n_gate_total = int(n_gate.sum())
     metrics.record("num_pairs", n_pairs)
+    metrics.record("pair_chunks", chunks)
     metrics.record("matches_per_pair_mean", float(n_match.mean()))
     metrics.record("inliers_per_pair_mean", float(n_inl.mean()))
     metrics.record("gated_points_total", n_gate_total)

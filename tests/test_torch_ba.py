@@ -31,6 +31,7 @@ from sfm_tpu.config import FeatureConfig as JFeatureConfig
 from sfm_tpu.config import PipelineConfig as JPipelineConfig
 from sfm_tpu.geometry.projection import project_cam as j_project_cam
 from sfm_tpu.io.calib import Calibration as JCalibration
+from sfm_tpu.sfm.pipeline import SparseReconstruction as JSparseReconstruction
 from sfm_tpu.sfm.pipeline import structure_from_motion as j_sfm
 from test_ba import synthetic_problem
 
@@ -55,6 +56,8 @@ torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIELDS = ("cams", "points", "cam_idx", "point_idx", "obs_2d", "mask")
+GATE_KEYS = ("ba_dense_schur_pairs", "ba_dense_schur_pair_bytes",
+             "ba_dense_schur_grid_bytes", "ba_dense_schur_decided_by")
 
 
 def carry(jp):
@@ -186,9 +189,9 @@ def check_joint(jp, tp, span, **kw):
     return c, pts, float(cost), it
 
 
-def test_solve_joint_not_ported(problems):
-    """Once a NotImplementedError; now the default (optimize_cameras=True,
-    PCG) solve of the port against sfm_tpu's."""
+def test_solve_joint_default_matches_jax(problems):
+    """The default solve (optimize_cameras=True, PCG) of the port against
+    sfm_tpu's."""
     jp = problems["blob1"]
     jc, jpts, jcost, jit = j_solve_lm(jp)
     c, pts, cost, it = solve_lm(carry(jp))
@@ -291,7 +294,10 @@ def test_bundle_adjust_refine_cameras_matches_jax(sphere_sparse, max_cams, solve
     rec, info = bundle_adjust(
         sparse_from_jax(r), BaConfig(dtype="float64", refine_cameras=True,
                                      dense_schur_max_cams=max_cams), device="cpu")
-    assert set(info) == set(jinfo) - {"finalize"}
+    # The port adds the counts of its dense gate (ba.run.dense_gate).
+    assert set(info) - set(GATE_KEYS) == set(jinfo) - {"finalize"}
+    assert info["ba_dense_schur_decided_by"] == (
+        "dense" if solver == "dense_schur" else "max_cams")
     assert info["camera_solver"] == jinfo["camera_solver"] == solver
     assert info["refined_cameras"] is True
     for k in ("num_observations", "num_points", "num_cameras", "iterations"):
@@ -302,7 +308,7 @@ def test_bundle_adjust_refine_cameras_matches_jax(sphere_sparse, max_cams, solve
     np.testing.assert_allclose(info["cams11"], np.asarray(jinfo["cams11"]),
                                rtol=tol, atol=atol)
     np.testing.assert_allclose(rec.world, jrec.world, rtol=0, atol=atol)
-    assert set(rec.metrics.values) == set(jrec.metrics.values)
+    assert set(rec.metrics.values) == set(jrec.metrics.values) | set(GATE_KEYS)
     for k, v in jrec.metrics.values.items():
         np.testing.assert_allclose(rec.metrics.values[k], v, rtol=10 * tol,
                                    err_msg=k)
@@ -317,6 +323,79 @@ def test_dense_schur_max_span_is_deprecated(sphere_sparse):
         bundle_adjust(sparse_from_jax(sphere_sparse),
                       BaConfig(dtype="float64", dense_schur_max_span=8),
                       device="cpu")
+
+
+def jax_copy(r):
+    """A copy of sfm_tpu's SparseReconstruction (its BA refines in place)."""
+    return type(r)(calib=r.calib, world=np.array(r.world),
+                   track_offsets=r.track_offsets, track_obs=r.track_obs)
+
+
+def test_dense_gate_sweep_matches_jax(sphere_sparse):
+    """dense_schur_max_bytes swept across sfm_tpu's grid bound
+    (4 * T * Nc * 144) on the sphere ring, f32: camera_solver equals
+    sfm_tpu's at every value.  Here the port's pair assembly is smaller
+    than the grids, so the grid bound decides."""
+    r = sphere_sparse
+    grid = 4 * r.num_tracks * r.calib.num_views * 144
+    values = (0, grid - 1, grid, grid + 1, 2 << 30)
+    solvers = []
+    for bound in values:
+        kw = dict(dtype="float32", refine_cameras=True, max_iterations=1,
+                  dense_schur_max_bytes=bound)
+        _, jinfo = j_bundle_adjust(jax_copy(r), JBaConfig(**kw))
+        _, info = bundle_adjust(sparse_from_jax(r), BaConfig(**kw), device="cpu")
+        assert info["camera_solver"] == jinfo["camera_solver"], bound
+        assert info["ba_dense_schur_grid_bytes"] == grid
+        assert info["ba_dense_schur_pair_bytes"] < grid
+        solvers.append((info["camera_solver"], info["ba_dense_schur_decided_by"]))
+    assert solvers == [("pcg", "grid_bytes")] * 2 + [("dense_schur", "dense")] * 3
+
+
+def long_track_recon(n_cams=6, n_pts=120, seed=0):
+    """Every point seen by every camera of a ring (tracks of length n_cams):
+    P = T * n_cams^2 same-point pairs, far more than the T * Nc of sfm_tpu's
+    grids."""
+    rng = np.random.default_rng(seed)
+    _, cal = synth.render_scene(synth.ring_rig(n_cams), w=64, h=48, seed=seed)
+    world = rng.normal(size=(n_pts, 3))
+    world /= np.linalg.norm(world, axis=1, keepdims=True) * 2.0
+    cam = np.einsum("cij,pj->pci", cal.R, world) + cal.t[None]
+    pix = np.einsum("cij,pcj->pci", cal.K, cam)
+    pix = pix[..., :2] / pix[..., 2:]
+    obs = np.concatenate([np.broadcast_to(np.arange(n_cams)[None, :, None],
+                                          (n_pts, n_cams, 1)),
+                          np.rint(pix)], axis=2).reshape(-1, 3).astype(np.int32)
+    offsets = np.arange(n_pts + 1, dtype=np.int64) * n_cams
+    jrec = JSparseReconstruction(
+        calib=JCalibration(K=cal.K, R=cal.R, t=cal.t, names=cal.names),
+        world=world, track_offsets=offsets, track_obs=obs)
+    return jrec
+
+
+def test_dense_gate_pair_bound_sends_long_tracks_to_pcg():
+    """Long tracks: the port's pair bytes exceed the bound while sfm_tpu's
+    grid bytes do not, so the port solves by PCG (decided by "pair_bytes",
+    recorded in info and the metrics) where sfm_tpu solves densely: the
+    deliberate difference of ba.run.dense_gate."""
+    jrec = long_track_recon()
+    grid = 4 * jrec.num_tracks * jrec.calib.num_views * 144
+    kw = dict(dtype="float32", refine_cameras=True, max_iterations=3,
+              dense_schur_max_bytes=grid)
+    _, jinfo = j_bundle_adjust(jax_copy(jrec), JBaConfig(**kw))
+    rec, info = bundle_adjust(sparse_from_jax(jrec), BaConfig(**kw), device="cpu")
+    assert jinfo["camera_solver"] == "dense_schur"
+    assert info["camera_solver"] == "pcg"
+    assert info["ba_dense_schur_decided_by"] == "pair_bytes"
+    assert info["ba_dense_schur_pairs"] == jrec.num_tracks * 6 ** 2
+    assert info["ba_dense_schur_pair_bytes"] > grid >= info["ba_dense_schur_grid_bytes"]
+    assert rec.metrics.values["ba_dense_schur_decided_by"] == "pair_bytes"
+    assert info["iterations"] >= 1
+    # With room for the pairs both packages solve densely.
+    _, info = bundle_adjust(sparse_from_jax(jrec), BaConfig(
+        **{**kw, "dense_schur_max_bytes": info["ba_dense_schur_pair_bytes"]}),
+        device="cpu")
+    assert info["camera_solver"] == "dense_schur"
 
 
 @pytest.fixture(scope="module")

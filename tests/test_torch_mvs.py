@@ -516,6 +516,75 @@ def test_mid_mvs_state_is_the_jax_packages_format(scene, tmp_path):
     assert abs(resumed.num_points - full.num_points) <= 0.02 * full.num_points
 
 
+# Both packages' default: sfm_tpu pads 12 images to a 16-image bucket.
+CKPT_BUCKETS = {**CKPT_CFG, "shape_buckets": True}
+
+
+def test_mid_mvs_state_crosses_at_default_buckets(scene, tmp_path):
+    """The twin of test_mid_mvs_state_is_the_jax_packages_format with shape
+    buckets on: both packages write the 16-wide state (``|nb16``, inert pad
+    views) letter for letter, the port resumes from sfm_tpu's file and
+    sfm_tpu from the port's, each within 2 % of sfm_tpu's uninterrupted
+    run with the same seeds."""
+    import sfm_tpu.mvs.pipeline as j_pipeline
+
+    images, rec = scene["images"], scene["rec"]
+    jck, tck = str(tmp_path / "jax"), str(tmp_path / "torch")
+    killed_run(j_dense, j_pipeline, 2, images, scene["jcal"], scene["jrec"],
+               JMvsConfig(**CKPT_BUCKETS), checkpoint_dir=jck,
+               checkpoint_every=1)
+    killed_run(dense_reconstruction, t_pipeline, 2, images, rec.calib, rec,
+               MvsConfig(**CKPT_BUCKETS), device="cpu", checkpoint_dir=tck,
+               checkpoint_every=1)
+    want, got = j_ckpt.load_mvs_state(jck), j_ckpt.load_mvs_state(tck)
+    assert set(got) == set(want) and "b_c" in got
+    assert str(got["fingerprint"]) == str(want["fingerprint"])
+    assert str(got["fingerprint"]).endswith("|nb16")
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        if not k.startswith(("acc_", "b_")):  # counts differ by NCC flips
+            assert got[k].shape == want[k].shape, k
+        assert got[k].shape[1:] == want[k].shape[1:], k
+    assert got["occupancy"].shape[0] == 16 and got["f_vis"].shape[1] == 16
+    assert not got["occupancy"][12:].any() and not got["f_vis"][:, 12:].any()
+    np.testing.assert_array_equal(got["counters"][[1, 2]], want["counters"][[1, 2]])
+    full = j_dense(images, scene["jcal"], scene["jrec"], JMvsConfig(**CKPT_BUCKETS))
+    resumed = dense_reconstruction(images, rec.calib, rec,
+                                   MvsConfig(**CKPT_BUCKETS), device="cpu",
+                                   checkpoint_dir=jck)
+    j_resumed = j_dense(images, scene["jcal"], scene["jrec"],
+                        JMvsConfig(**CKPT_BUCKETS), checkpoint_dir=tck)
+    for r in (resumed, j_resumed):
+        assert r.metrics.values["mvs_resumed_at_round"] == 2
+        assert r.num_seeds == full.num_seeds
+        assert abs(r.num_points - full.num_points) <= 0.02 * full.num_points
+
+
+def test_kill_and_resume_with_buckets_is_bit_identical(scene, tmp_path):
+    """With shape buckets on the port saves 16-wide and slices back to 12 on
+    load: the resumed cloud is still the uninterrupted one, bit for bit; a
+    state whose pad views are not inert is refused."""
+    images, rec = scene["images"], scene["rec"]
+    cfg = MvsConfig(**CKPT_BUCKETS)
+    full = dense_reconstruction(images, rec.calib, rec, cfg, device="cpu")
+    ck = str(tmp_path / "ckpt")
+    killed_run(dense_reconstruction, t_pipeline, 3, images, rec.calib, rec, cfg,
+               device="cpu", checkpoint_dir=ck, checkpoint_every=1)
+    state = t_ckpt.load_mvs_state(ck)
+    assert state["occupancy"].shape[0] == 16 and state["b_vis"].shape[1] == 16
+    resumed = dense_reconstruction(images, rec.calib, rec, cfg, device="cpu",
+                                   checkpoint_dir=ck, checkpoint_every=1)
+    assert resumed.metrics.values["mvs_resumed_at_round"] == 3
+    for f in ("points", "colors", "normals", "scores", "refs"):
+        np.testing.assert_array_equal(getattr(resumed, f), getattr(full, f), f)
+    # An occupied pad view: not a state of this input.
+    state["occupancy"][14, 0, 0] = True
+    t_ckpt.save_mvs_state(ck, state)
+    with pytest.raises(ValueError, match="padded view"):
+        dense_reconstruction(images, rec.calib, rec, cfg, device="cpu",
+                             checkpoint_dir=ck)
+
+
 def test_cli_resumes_from_the_jax_packages_sfm_checkpoint(scene, tmp_path, capsys):
     """sfm_tpu writes ``sfm.npz``; the port's ``--stages ba,mvs`` resumes
     from it, writes ``ba.npz``, and ``--stages mvs`` alone then resumes

@@ -324,12 +324,7 @@ def test_cli_sfm_stage(tmp_path, capsys):
     pts, _ = read_ply(os.path.join(out, "sparse_points.ply"))
     assert pts.shape == (summary["sparse_tracks"], 3) and pts.shape[0] > 50
     assert np.percentile(synth.surface_distance(pts, spheres), 95) < 0.05
-    # Flags whose machinery is not ported exit 2 instead of running the
-    # default path; so do unknown stages and BA/MVS without a sparse stage.
-    for extra in (["--stages", "sfm", "--plot"], ["--debug"],
-                  ["--profile_dir", out]):
-        assert t_main(args + extra) == 2
-        assert "not yet ported" in capsys.readouterr().err
+    # (--plot, --debug and --profile_dir: tests/test_torch_viz_cli.py.)
     # Ported flags run: the sfm stage with all three writes its checkpoint,
     # and a second run resumes from it with the same cloud.
     ck = str(tmp_path / "ckpt")
@@ -343,6 +338,7 @@ def test_cli_sfm_stage(tmp_path, capsys):
     assert "resumed sparse reconstruction" in capsys.readouterr().out
     again, _ = read_ply(os.path.join(out, "sparse_points.ply"))
     np.testing.assert_array_equal(again, first)
+    # Unknown stages and BA/MVS without a sparse stage exit 2.
     assert t_main(args + ["--stages", "sfm,dense"]) == 2
     assert "unknown stage" in capsys.readouterr().err
     assert t_main(args + ["--stages", "ba,mvs"]) == 2
@@ -393,7 +389,8 @@ def test_import_leaves_jax_out():
         "sfm_tpu_torch.ops, sfm_tpu_torch.utils.synth, sfm_tpu_torch.utils.build, "
         "sfm_tpu_torch.mvs.filter, sfm_tpu_torch.utils.checkpoint, "
         "sfm_tpu_torch.ops.gather_tile, sfm_tpu_torch.tools.prof_tile, "
-        "sfm_tpu_torch.ba.sharded; "
+        "sfm_tpu_torch.ba.sharded, sfm_tpu_torch.utils.viz, "
+        "sfm_tpu_torch.utils.buckets; "
         "assert 'jax' not in sys.modules, 'jax imported'; "
         "assert not any(m == 'sfm_tpu' or m.startswith('sfm_tpu.') for m in sys.modules)"
     )
