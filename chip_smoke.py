@@ -24,8 +24,11 @@ over every GPU, and K1 and K2 on a second GPU while the first is current,
 where there are two or more: ``chiprun --chips 4 -- python3 chip_smoke.py``
 drives those branches), where K2s's time goes (host enqueue, device
 kernels), and the CLI with ``--mesh_devices 4``.  Then K3 (the tile-resident
-sampler) in its three modes against its plain versions and K2, and its
-entry point ``sfm_tpu_torch.tools.prof_tile``; MVS with the outlier filter
+sampler) in its three modes against its plain versions and K2, the staging
+route each of its input sets took (by the device kernel's name: the
+tensor-map kernel on 640-wide stacks, the per-row kernel on an odd
+width), and K3's entry point
+``sfm_tpu_torch.tools.prof_tile``; MVS with the outlier filter
 (its K2 launch counted, the device filter held to the host oracle); MVS
 killed after two rounds and resumed from its checkpoint, and the CLI with
 ``--checkpoint_dir`` then ``--stages mvs`` alone; joint bundle adjustment
@@ -394,6 +397,59 @@ def check_k3(gray_bf16, img_f, ctr_f):
     return out
 
 
+# K3's device kernels by staging route (csrc/gather_tile.cu).
+K3_KERNELS = {"tma": "gather_tile_tma_kernel",
+              "rows": "gather_tile_rows_kernel"}
+
+
+def device_kernel_names(fn):
+    """Names of the device kernels one call of ``fn`` launches, under
+    torch.profiler (a session opened with ten marker fills, as
+    ``kernel_only_ms``'s)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    marker = torch.empty(1024, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            marker.fill_(0.0)
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def check_k3_routes(gray_bf16, img_f, ctr_f):
+    """The staging route K3 took on each input set of ``k3_cases``, by the
+    name of the device kernel one call launches: the tensor-map kernel on
+    the three 640-wide stacks, the per-row kernel on the odd-width one, as
+    ``tile_route`` (the wrapper's statement of the rule) says.  These calls
+    are not among ``check_k3``'s 36.  Returns name -> route."""
+    from sfm_tpu_torch.ops.gather_tile import (
+        sample_normalized_patches_tiled,
+        tile_route,
+    )
+
+    routes = {}
+    for name, g, img, ctr in k3_cases(gray_bf16, img_f, ctr_f):
+        want = "rows" if name == "odd width" else "tma"
+        check(tile_route(g) == want, f"K3 {name}: tile_route {tile_route(g)}")
+        seen = set()
+        for _ in range(3):  # the profiler may lose a session's kernels
+            names = device_kernel_names(
+                lambda: sample_normalized_patches_tiled(g, img, ctr, WID))
+            seen = {route for route, base in K3_KERNELS.items()
+                    if any(kernel_named(n, base) for n in names)}
+            if seen:
+                break
+        check(seen == {want}, f"K3 {name}: device kernels {sorted(seen)}, "
+              f"want {K3_KERNELS[want]}")
+        routes[name] = want
+    log("K3 staging route by input set (device kernel name): "
+        + json.dumps({k: K3_KERNELS[v] for k, v in routes.items()}))
+    return routes
+
+
 def cuda_ms(fn, reps=20, batch=10):
     """Median milliseconds per call: ``reps`` CUDA-event windows, each over
     ``batch`` back-to-back calls (so host launch overhead overlaps)."""
@@ -497,7 +553,8 @@ def gather_bound(gray_bf16, m):
 
 def kernel_named(name, base):
     """Whether a device kernel's name is ``base``'s (K1 ``harris_kernel``,
-    K2 ``gather_kernel``, K3 ``gather_tile_kernel``) and not another
+    K2 ``gather_kernel``, K3 ``gather_tile_tma_kernel`` or
+    ``gather_tile_rows_kernel``) and not another
     kernel's that contains it, such as PyTorch's
     ``vectorized_gather_kernel``."""
     return re.search(rf"\b{base}\b", name) is not None
@@ -514,17 +571,22 @@ def kernel_only_ms(fn, name_part, calls=20):
         fn()
     torch.cuda.synchronize()
     marker = torch.empty(1024, device="cuda")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            marker.fill_(0.0)
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and kernel_named(e.name, name_part)]
-    # The profiler may lose the first events of a session (hence the fills
-    # that open it): average those seen.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                marker.fill_(0.0)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and kernel_named(e.name, name_part)]
+        # The profiler may lose the first events of a session (hence the
+        # fills that open it), now and then all of them: average those
+        # seen, or profile again.
+        if calls // 2 <= len(us) <= calls:
+            break
+        log(f"{name_part}: {len(us)} kernels seen in {calls} calls; again")
     check(calls // 2 <= len(us) <= calls,
           f"{name_part}: {len(us)} kernels seen in {calls} calls")
     return sum(us) / 1e3 / len(us)
@@ -1582,15 +1644,24 @@ def main() -> int:
     from sfm_tpu_torch.tools import prof_tile
 
     k3 = check_k3(gray_bf16, img_f, ctr_f)
+    k3_routes = check_k3_routes(gray_bf16, img_f, ctr_f)
     tile_rows, k3_launches = run_prof_tile(smi)
     tg, ti, tc = prof_tile.case_tensors(81920, torch.device("cuda"))
+    # The same images three columns wider (643: the per-row route), which
+    # the same windows read: the same descriptors.
+    tg_rows = torch.zeros((*tg.shape[:2], tg.shape[2] + 3), dtype=tg.dtype,
+                          device=tg.device)
+    tg_rows[:, :, :tg.shape[2]] = tg
     k3_default = lambda: sample_normalized_patches_tiled(tg, ti, tc, WID)  # noqa: E731
     k2_same = lambda: sample_normalized_patches(tg, ti, tc, WID)  # noqa: E731
+    k3_rows = lambda: sample_normalized_patches_tiled(tg_rows, ti, tc, WID)  # noqa: E731
+    check(torch.equal(k3_rows(), k3_default()), "K3's two routes differ")
     k3_t = {
         "ms": cuda_ms(k3_default),
         "plain_ms": cuda_ms(lambda: _sample_plain(tg, ti, tc, WID)),
         "k2_same_inputs_ms": cuda_ms(k2_same),
-        "kernel_only_ms": kernel_only_ms(k3_default, "gather_tile_kernel"),
+        "kernel_only_ms": kernel_only_ms(k3_default, K3_KERNELS["tma"]),
+        "kernel_only_ms_rows_route": kernel_only_ms(k3_rows, K3_KERNELS["rows"]),
         "k2_kernel_only_ms": kernel_only_ms(k2_same, "gather_kernel"),
     }
     k3_modes = {f"{r['mode']}_S{r['S']}": r["time_s"] * 1e3 for r in tile_rows
@@ -1598,7 +1669,7 @@ def main() -> int:
     k3_modes_kernel_only = {
         f"{mode}_S{S}": kernel_only_ms(
             lambda kw=kw: sample_normalized_patches_tiled(tg, ti, tc, WID, **kw),
-            "gather_tile_kernel")
+            K3_KERNELS["tma"])
         for _, mode, S, kw in prof_tile.modes()}
     log(f"K3 at 81,920 samples (S 32, double-buffered) on {smi}, ms: "
         + json.dumps({k: round(v, 5) for k, v in k3_t.items()}))
@@ -1778,6 +1849,8 @@ def main() -> int:
          "ms": k3_t["ms"], "plain_ms": k3_t["plain_ms"],
          **gather_bound(tg, ti.numel()), "library_ms": None,
          "kernel_only_ms": k3_t["kernel_only_ms"],
+         "kernel_only_ms_rows_route": k3_t["kernel_only_ms_rows_route"],
+         "staging_routes": k3_routes,
          "k2_same_inputs_ms": k3_t["k2_same_inputs_ms"],
          "k2_same_inputs_kernel_only_ms": k3_t["k2_kernel_only_ms"],
          "samples": ti.numel(), "ms_by_mode": k3_modes,

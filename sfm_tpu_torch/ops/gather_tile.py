@@ -3,11 +3,17 @@
 Counterpart of ``tools/prof_tile.py:make_gather_kernel``, the Pallas kernel
 of the tile-resident gather experiments that sized K2 on the TPU.
 ``sample_normalized_patches_tiled`` is the wrapper of kernel K3
-(``csrc/gather_tile.cu``): a block brings ``samples_per_block`` samples'
-windows into shared memory with asynchronous copies, waits, and extracts and
-normalises from there; with ``double_buffer`` the next step's copies are in
-flight while a step is processed; with ``extract=False`` it only copies the
-staged window's first side x side values out (the cost of the copies alone).
+(``csrc/gather_tile.cu``): per step producer warps have the copy engine
+bring ``samples_per_block`` samples' windows into a ring of shared-memory
+stages -- one Tensor Memory Accelerator box a window where the stack
+allows a tensor map, else each window row's 16-byte-aligned span
+(``tile_route`` says which of its two kernels a stack takes) -- and
+consumer warps extract and normalise from there; with ``double_buffer``
+the ring has two stages, so the next step's copies are in flight while a
+step is processed; with ``extract=False`` it only copies the staged
+window's first side x side values out (the cost of the copies alone).
+``shared_bytes`` is the kernel's shared-memory plan, which the wrapper
+checks before a launch.
 
 The TPU tool's ``gather_params`` (8-row ``row8``/``dy``, 128-lane
 ``x_al``/``x_rem``, operands packed to SMEM 1024-blocks) has no counterpart:
@@ -30,7 +36,57 @@ from sfm_tpu_torch.ops._launch import check_launch, launch_on, on_cpu
 from sfm_tpu_torch.ops.gather import MAX_WID, _sample_plain
 from sfm_tpu_torch.utils.build import kernel_library
 
-MAX_SAMPLES_PER_BLOCK = 256  # the kernel's block size: one thread derives one window
+MAX_SAMPLES_PER_BLOCK = 256
+
+# The kernel's shared-memory plan (csrc/gather_tile.cu: the constants of the
+# same names and ``shared_bytes``).
+TILE_ALIGN = 128          # bytes: the records and the tiles start aligned
+PARAM_BYTES = 16          # one sample's record (fractions, window origin)
+BARRIER_BYTES = 128       # the ring's mbarriers, padded
+MAX_SHARED_BYTES = 232448  # a block's 227 KB on Hopper
+
+
+def _round_up(x: int, a: int) -> int:
+    return -(-x // a) * a
+
+
+def tile_route(gray) -> str:
+    """The staging route K3 takes for the (N, H, W) bf16 stack ``gray``, by
+    the rule its C entry point applies: "tma" where a tensor map can
+    describe the stack -- its first element 16-byte aligned and a row a
+    multiple of 16 bytes (W % 8 == 0) -- one box a window (kernel
+    ``gather_tile_tma_kernel``); else "rows", each window row's
+    16-byte-aligned span (``gather_tile_rows_kernel``)."""
+    aligned = gray.shape[-1] % 8 == 0 and gray.data_ptr() % 16 == 0
+    return "tma" if aligned else "rows"
+
+
+def tile_geometry(wid: int, route: str) -> dict:
+    """One staged window as the kernel lays it out on ``route``, for
+    half-width ``wid``: ``win`` (window side), ``row`` (bytes a tile row
+    holds) and ``tile`` (bytes from one sample's tile to the next).  tma: a
+    box row of ``box`` elements, the window's row from its column rounded
+    down to 8 elements, tiles 128-byte aligned as a tensor copy's
+    destination.  rows: the widest 16-byte-aligned span of a window row,
+    which starts at any even byte."""
+    win = 2 * wid + 2
+    if route == "tma":
+        box = _round_up(win + 7, 8)
+        return {"win": win, "box": box, "row": 2 * box,
+                "tile": _round_up(2 * box * win, TILE_ALIGN)}
+    row = _round_up(2 * win + 14, 16)
+    return {"win": win, "row": row, "tile": row * win}
+
+
+def shared_bytes(wid: int, samples_per_block: int, double_buffer: bool,
+                 route: str) -> int:
+    """Dynamic shared memory of one K3 block on ``route``: alignment slack,
+    the ring's barriers, every stage's sample records and every stage's
+    tiles."""
+    stages = 2 if double_buffer else 1
+    records = _round_up(stages * samples_per_block * PARAM_BYTES, TILE_ALIGN)
+    return (TILE_ALIGN + BARRIER_BYTES + records
+            + stages * samples_per_block * tile_geometry(wid, route)["tile"])
 
 
 def _copy_plain(gray, img, ctr, wid):
@@ -67,14 +123,18 @@ def sample_normalized_patches_tiled(
       centers: (M, 2) float32 (x, y) patch centers.
       wid: half-width (<= 8); patch side = 2*wid+1.
       samples_per_block: S, the windows a block stages per step (1..256).
-      double_buffer: start step i+1's copies before processing step i.
+      double_buffer: two stages, so step i+1's copies start before step i
+        is processed; one stage otherwise.
       extract: True interpolates and normalises (``sample_normalized_patches``'s
         descriptors); False copies each window's first side x side values
         out unchanged.
 
     Returns (M, side^2) bf16.  CUDA tensors go through kernel K3 (counted in
-    ``sample_normalized_patches_tiled.launches``); CPU tensors through the
-    plain version.
+    ``sample_normalized_patches_tiled.launches``) on the route
+    ``tile_route(gray)``; CPU tensors through the plain version.  An S and
+    ``wid`` whose stages cannot fit a block's shared memory on that route
+    (``shared_bytes`` over ``MAX_SHARED_BYTES``) raise ValueError on any
+    device, before anything is launched.
     """
     if gray.dim() != 3 or gray.dtype != torch.bfloat16:
         raise TypeError(
@@ -99,6 +159,16 @@ def sample_normalized_patches_tiled(
         raise ValueError(
             f"samples_per_block={samples_per_block} outside "
             f"1..{MAX_SAMPLES_PER_BLOCK}"
+        )
+    route = tile_route(gray)
+    need = shared_bytes(wid, samples_per_block, double_buffer, route)
+    if need > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"samples_per_block={samples_per_block} "
+            f"{'double' if double_buffer else 'single'}-buffered at wid={wid} "
+            f"on the {route} route "
+            f"needs {need} bytes of shared memory, more than a block's "
+            f"{MAX_SHARED_BYTES}"
         )
     m = img_idx.shape[0]
     if on_cpu("sample_normalized_patches_tiled", gray, img_idx, centers):

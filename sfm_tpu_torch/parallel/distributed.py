@@ -1,7 +1,8 @@
 """Multi-process initialization.
 
 Counterpart of ``sfm_tpu/parallel/distributed.py``.  One process driving
-the GPUs of its host needs nothing: ``data_mesh()`` spans them.  A mesh
+the GPUs of its host needs nothing: ``data_mesh()`` spans them (and raises
+where there is none; CPU shards are named with ``devices=``).  A mesh
 across processes or hosts, and the process group it would run on, are not
 built yet (ROADMAP queue 1 item 16).
 """

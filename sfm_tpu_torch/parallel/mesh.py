@@ -105,16 +105,22 @@ def data_mesh(
     num_devices: Optional[int] = None,
     devices: Optional[Sequence] = None,
 ) -> DataMesh:
-    """1-D mesh over the data axis: by default every visible CUDA device,
-    else the CPU.  ``num_devices`` keeps the first ``num_devices`` of them
-    (as ``sfm_tpu``'s ``devices[:num_devices]``: on one GPU, 4 asked gives a
-    1-device mesh)."""
+    """1-D mesh over the data axis: ``devices``, by default every visible
+    CUDA device; without ``devices`` and without a CUDA device it raises
+    RuntimeError (a CPU mesh is asked for by name:
+    ``devices=[torch.device("cpu")] * k``).  ``num_devices`` keeps the
+    first ``num_devices`` of them (as ``sfm_tpu``'s
+    ``devices[:num_devices]``: on one GPU, 4 asked gives a 1-device
+    mesh)."""
     if devices is None:
-        if torch.cuda.is_available():
-            devices = [torch.device("cuda", i)
-                       for i in range(torch.cuda.device_count())]
-        else:
-            devices = [torch.device("cpu")]
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "data_mesh: no CUDA device is visible; pass devices= for a "
+                "mesh of other devices (devices=[torch.device('cpu')] * k "
+                "for CPU shards)"
+            )
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
     devices = list(devices)
     if num_devices is not None:
         devices = devices[:num_devices]

@@ -1,9 +1,10 @@
-"""Time kernels K1 and K2 alone, one version of the sources against another.
+"""Time kernels K1, K2 and K3 alone, one version of the sources against
+another.
 
 Run on a machine with an NVIDIA GPU:
 
     python3 -m sfm_tpu_torch.tools.bench_kernels [--csrc DIR ...] [--calls 20]
-        [--host-calls 2000]
+        [--host-calls 2000] [--only SUBSTRING ...]
 
 Each ``--csrc DIR`` is a directory of kernel sources with this package's
 entry points (``sfm_tpu_torch/csrc`` itself when none is given; an earlier
@@ -16,8 +17,16 @@ path's shapes:
 
   K1  48 x 480 x 640 f32, integer gray;
   K2  49,152 integer centres (the SfM stage), 163,840 fractional centres
-      (an MVS round), 81,920 in-bounds fractional centres (the tile tool's
-      case), on the bf16 stack, wid 5.
+      (an MVS round), 81,920 in-bounds fractional centres, on the bf16
+      stack, wid 5; and on the tile tool's own case (``prof_tile.build_case``:
+      81,920 in-bounds centres on its random 48 x 480 x 640 stack);
+  K3  the tile tool's case at S 8, 32 and 128 in its three modes (copy-only,
+      single- and double-buffered), and at S 32 copy-only and double-buffered
+      on the same images three columns wider (643, an odd pitch: K3's
+      per-row route where the sources have two; the same windows, so the
+      same outputs).
+
+``--only`` keeps the cases whose name contains one of its arguments.
 
 The versions are timed in turns (a, b, ..., b, a) inside one process, on
 one card.  Per version and case one JSON line: the median over the turns of
@@ -45,9 +54,12 @@ import time
 import numpy as np
 import torch
 
+from sfm_tpu_torch.tools import prof_tile
 from sfm_tpu_torch.utils import build
 
 WID = 5
+ENTRY = {"k1": "harris_response_f32", "k2": "sample_normalized_patches_bf16",
+         "k3": "sample_normalized_patches_tiled_bf16"}
 
 
 def cases(device):
@@ -66,7 +78,7 @@ def cases(device):
         return (torch.from_numpy(img).to(device),
                 torch.from_numpy(ctr.astype(np.float32)).to(device))
 
-    return {
+    out = {
         "k1_48x480x640": ("k1", gray),
         "k2_49152_integer": ("k2", stack, *samples(
             49152, WID + 1, w - WID - 2, h - WID - 2, integer=True)),
@@ -75,6 +87,17 @@ def cases(device):
         "k2_81920_inbounds": ("k2", stack, *samples(
             81920, WID + 1, w - WID - 2, h - WID - 2)),
     }
+    tool = prof_tile.case_tensors(81920, device)
+    out["k2_81920_tool_case"] = ("k2", *tool)
+    for _, mode, S, kw in prof_tile.modes():
+        out[f"k3_81920_S{S}_{mode}"] = ("k3", *tool, S, kw["double_buffer"],
+                                        kw["extract"])
+    wider = torch.zeros((n, h, w + 3), dtype=tool[0].dtype, device=device)
+    wider[:, :, :w] = tool[0]
+    for mode, double, extract in (("copy", True, False), ("double", True, True)):
+        out[f"k3_81920_S32_{mode}_643_wide"] = (
+            "k3", wider, *tool[1:], 32, double, extract)
+    return out
 
 
 def load(csrc_dir):
@@ -104,6 +127,20 @@ def launcher(lib, case):
                                            n, h, w, ctypes.c_float(0.04), stream)
 
         return launch, [out], "harris_kernel"
+    if kind == "k3":
+        img, ctr, S, double, extract = rest
+        n, h, w = first.shape
+        m = img.shape[0]
+        out = torch.empty((m, (2 * WID + 1) ** 2), dtype=torch.bfloat16,
+                          device=first.device)
+        args = [first.data_ptr(), img.data_ptr(), ctr.data_ptr(), out.data_ptr(),
+                m, n, h, w, WID, S, int(double), int(extract), stream]
+
+        def launch():
+            return lib.sample_normalized_patches_tiled_bf16(*args)
+
+        # every version's K3 kernels are named gather_tile_*
+        return launch, [out], "gather_tile_"
     img, ctr = rest
     n, h, w = first.shape
     m = img.shape[0]
@@ -131,9 +168,14 @@ def kernel_ms(launch, name_part, calls):
         launch()
     torch.cuda.synchronize()
     seen, us = [], []
-    for _ in range(3):  # a profiler window now and then loses its events
+    marker = torch.empty(1024, device="cuda")
+    for _ in range(5):  # a profiler window now and then loses its events
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            # the first events of a session are the ones it may lose
+            for _ in range(10):
+                marker.fill_(0.0)
+            torch.cuda.synchronize()
             for _ in range(calls):
                 err = launch()
                 if err:
@@ -170,6 +212,7 @@ def main(argv=None) -> int:
     ap.add_argument("--csrc", action="append", default=None)
     ap.add_argument("--calls", type=int, default=20)
     ap.add_argument("--host-calls", type=int, default=2000)
+    ap.add_argument("--only", nargs="*", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("error: bench_kernels needs a CUDA device", file=sys.stderr)
@@ -187,10 +230,11 @@ def main(argv=None) -> int:
     turns = dirs + dirs[::-1] if len(dirs) > 1 else dirs * 2
     inputs = cases(torch.device("cuda"))
     for name, case in inputs.items():
+        if args.only is not None and not any(o in name for o in args.only):
+            continue
         times = {d: [] for d in dirs}
         sums = {}
-        entry = ("harris_response_f32" if case[0] == "k1"
-                 else "sample_normalized_patches_bf16")
+        entry = ENTRY[case[0]]
         for d in turns:
             if entry not in build.declared_entry_points(d):
                 continue  # this directory holds the other kernel only

@@ -11,7 +11,10 @@ reading nothing outside the stack; phase 11's K2s (the sharded wrapper) on
 current (skipped below two GPUs); and K3 (the tile-resident sampler) in its
 three modes at S = 8, 32, 128 against its plain versions and against K2, on
 the tool's case, an expansion round's centres, non-finite centres and the
-edges of a guarded and of an odd-width stack.  Also K1 on shapes off the
+edges of a guarded and of an odd-width stack, the staging route each set
+took by device kernel name, a 640-wide view off a 16-byte boundary on the
+per-row route, and an S / wid whose stages cannot fit a block refused
+before any launch.  Also K1 on shapes off the
 main path (odd width, tiny images, a 4-byte-aligned stack, non-integer
 gray) and what K2's one-launch design adds: its mask on the in-bounds
 limits, M = 1, 7 and 163,843, wid 0, 2 and 8, guarded and odd-width stacks,
@@ -146,6 +149,70 @@ def test_k3_modes_against_plain_versions_and_k2(smoke, stack):
     assert out["max_abs_err"] <= smoke.K2_FRAC_ATOL
     assert out["bit_equal_k2"]
     assert sample_normalized_patches_tiled.launches == before + 36
+
+
+def test_k3_routes_by_kernel_name(smoke, stack):
+    _, (img_f, ctr_f) = smoke.k2_inputs(stack, torch.zeros(
+        (stack.shape[0], 1, 2), dtype=torch.int32, device=stack.device))
+    routes = smoke.check_k3_routes(stack.to(torch.bfloat16), img_f, ctr_f)
+    assert routes == {"tool case": "tma", "expansion round": "tma",
+                      "guarded edges": "tma", "odd width": "rows"}
+
+
+def test_k3_refuses_what_cannot_fit(stack):
+    from sfm_tpu_torch.ops.gather_tile import (
+        MAX_SHARED_BYTES,
+        sample_normalized_patches_tiled,
+        shared_bytes,
+    )
+
+    g = stack.to(torch.bfloat16)
+    img = torch.zeros(4, dtype=torch.int32, device=g.device)
+    ctr = torch.full((4, 2), 50.0, device=g.device)
+    assert shared_bytes(8, 256, True, "tma") > MAX_SHARED_BYTES
+    before = sample_normalized_patches_tiled.launches
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError, match="shared memory"):
+        sample_normalized_patches_tiled(g, img, ctr, 8, samples_per_block=256,
+                                        double_buffer=True)
+    assert sample_normalized_patches_tiled.launches == before
+    # S 192 single-buffered at wid 8 fits (224,512 bytes: above 48 KB, so
+    # opted into) and launches
+    assert shared_bytes(8, 192, False, "tma") == 224512
+    out = sample_normalized_patches_tiled(g, img, ctr, 8, samples_per_block=192,
+                                          double_buffer=False)
+    torch.cuda.synchronize()
+    assert sample_normalized_patches_tiled.launches == before + 1
+    assert out.shape == (4, 17 * 17) and torch.isfinite(out.float()).all()
+
+
+def test_k3_unaligned_base_takes_the_rows_route(smoke, stack):
+    # A 640-wide view whose first element is 2 bytes past a 16-byte
+    # boundary cannot be a tensor map's base: the rows kernel runs, with
+    # the tensor-map kernel's results on an aligned copy of the same stack.
+    from sfm_tpu_torch.ops.gather_tile import (
+        sample_normalized_patches_tiled,
+        tile_route,
+    )
+
+    g = stack.to(torch.bfloat16)
+    buf = torch.empty(g.numel() + 8, dtype=torch.bfloat16, device=g.device)
+    view = buf[1:1 + g.numel()].view(g.shape)
+    view.copy_(g)
+    assert tile_route(g) == "tma" and tile_route(view) == "rows"
+    n, h, w = g.shape
+    gen = torch.Generator().manual_seed(5)
+    ctr = (torch.rand((4096, 2), generator=gen)
+           * torch.tensor([w - 1.0, h - 1.0])).to(g.device)
+    img = torch.randint(0, n, (4096,), generator=gen,
+                        dtype=torch.int32).to(g.device)
+    for extract in (False, True):
+        want = sample_normalized_patches_tiled(g, img, ctr, 5, extract=extract)
+        names = smoke.device_kernel_names(lambda: sample_normalized_patches_tiled(
+            view, img, ctr, 5, extract=extract))
+        assert any(smoke.kernel_named(k, "gather_tile_rows_kernel") for k in names)
+        got = sample_normalized_patches_tiled(view, img, ctr, 5, extract=extract)
+        assert torch.equal(got, want)
 
 
 def test_k3_raises_instead_of_falling_back(stack):

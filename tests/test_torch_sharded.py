@@ -91,18 +91,33 @@ def test_pad_to_shards_and_shard_batch_match_jax(n, shards):
         np.testing.assert_array_equal(got_mask, want_mask)
 
 
-def test_data_mesh(mesh8):
+def test_data_mesh(mesh8, monkeypatch):
     assert mesh8.shape == dict(j_data_mesh().shape) == {"data": 8}
     assert mesh8.size == 8 and mesh8.lead == CPU
-    # Default: every visible CUDA device, else the CPU; num_devices keeps
-    # the first ones (more than there are gives them all, as in JAX).
-    visible = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-               if torch.cuda.is_available() else [CPU])
-    assert list(data_mesh().devices) == visible
-    assert list(data_mesh(num_devices=64).devices) == visible
     assert data_mesh(num_devices=3, devices=[CPU] * 8).shape == {"data": 3}
     with pytest.raises(ValueError):
         DataMesh([])
+    # Default: every visible CUDA device; num_devices keeps the first ones
+    # (more than there are gives them all, as in JAX).  Without a CUDA
+    # device the default raises: a CPU mesh only comes from devices=.
+    if torch.cuda.is_available():
+        visible = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        assert list(data_mesh().devices) == visible
+        assert list(data_mesh(num_devices=64).devices) == visible
+    else:
+        for kw in ({}, {"num_devices": 2}):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                data_mesh(**kw)
+    # Both branches on any machine: no GPU raises, three GPUs give three.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="devices="):
+        data_mesh()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    gpus = [torch.device("cuda", i) for i in range(3)]
+    assert list(data_mesh().devices) == gpus
+    assert list(data_mesh(num_devices=2).devices) == gpus[:2]
+    assert list(data_mesh(num_devices=64).devices) == gpus
 
 
 def test_mesh_moves(mesh8):
