@@ -38,10 +38,19 @@ chunk budget, and once more in a single chunk), points-only and joint BA
 and MVS on its tracks, and the sequential stage forced into three chunks;
 and the CLI with ``--nonSequence --profile_dir`` (plus ``--debug --plot``
 where matplotlib is installed), whose trace must name K1's and K2's device
-kernels.  It prints as its last
-line ``{"ok": true, "device": {...}}``.  Any failed check raises and the exit
-code is nonzero.  Without CUDA it exits 1 and prints no result.  Imports
-nothing of JAX.
+kernels.  Then the scale envelope: the 96-frame 1280x960 stress ring
+through ``sfm_tpu_torch.tools.stress_scale`` (K1 bit-equal on the whole
+stack, K2 at its 393,216 descriptor centres and at one expansion round's;
+SfM, BA and MVS held to the gates of the JAX package's ``STRESS_r05.json``,
+a warm repeat, K1's and K2's kernel-only times at that shape), bundle
+adjustment at 1M observations through ``sfm_tpu_torch.tools.ba_scale``
+(each solve's rms held to ``BA_SCALE_r05.txt``'s, dense against PCG, 8
+virtual shards against one device), and ``quality_torch.py``'s solver
+parity on the reference's captured BA problem.  Each of those three
+phases prints its wall, and the script its whole wall.  It prints as its
+last line ``{"ok": true, "device": {...}}``.  Any failed check raises and
+the exit code is nonzero.  Without CUDA, or without Pillow (the CLI
+phases need it), it exits 1 and prints no result.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -50,7 +59,6 @@ import contextlib
 import io
 import json
 import os
-import re
 import statistics
 import subprocess
 import sys
@@ -429,6 +437,7 @@ def check_k3_routes(gray_bf16, img_f, ctr_f):
         sample_normalized_patches_tiled,
         tile_route,
     )
+    from sfm_tpu_torch.tools.measure import kernel_named
 
     routes = {}
     for name, g, img, ctr in k3_cases(gray_bf16, img_f, ctr_f):
@@ -524,72 +533,6 @@ def host_and_device(fn, calls=50):
             "launches": len(kern) / calls,
             "device_ms": sum(e.time_range.elapsed_us() for e in kern) / 1e3 / calls,
             "kernels": sorted({e.name[:48] for e in kern})}
-
-
-# Published peaks of one H100 SXM (NVIDIA's data sheet): HBM3 bytes/s and
-# float32 operations/s outside the tensor cores (none of the kernels uses them).
-PEAK_BYTES_S = 3.35e12
-PEAK_F32_S = 67e12
-
-
-def bound(nbytes, flops):
-    """The least time the card could take, ms, and what bounds it: the
-    larger of bytes over the memory rate and operations over the peak."""
-    t_b, t_f = nbytes / PEAK_BYTES_S, flops / PEAK_F32_S
-    return {"bound_ms": max(t_b, t_f) * 1e3,
-            "bound_by": "bytes" if t_b >= t_f else "operations"}
-
-
-def gather_bound(gray_bf16, m):
-    """K2 / K3 on m samples: the stack read once, or only the windows this
-    run's samples touch where those are fewer bytes; 12 bytes of operands
-    and 242 of output per sample; ~8 operations per interpolated value and
-    ~6 per normalised one."""
-    side, win = 2 * WID + 1, 2 * WID + 2
-    nbytes = (min(gray_bf16.numel() * 2, m * win * win * 2) + m * 12
-              + m * side * side * 2)
-    return bound(nbytes, m * side * side * 14)
-
-
-def kernel_named(name, base):
-    """Whether a device kernel's name is ``base``'s (K1 ``harris_kernel``,
-    K2 ``gather_kernel``, K3 ``gather_tile_tma_kernel`` or
-    ``gather_tile_rows_kernel``) and not another
-    kernel's that contains it, such as PyTorch's
-    ``vectorized_gather_kernel``."""
-    return re.search(rf"\b{base}\b", name) is not None
-
-
-def kernel_only_ms(fn, name_part, calls=20):
-    """Device time per call of the kernels whose name contains
-    ``name_part``, under torch.profiler: the kernel alone, apart from the
-    other launches of its wrapper."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    marker = torch.empty(1024, device="cuda")
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                marker.fill_(0.0)
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and kernel_named(e.name, name_part)]
-        # The profiler may lose the first events of a session (hence the
-        # fills that open it), now and then all of them: average those
-        # seen, or profile again.
-        if calls // 2 <= len(us) <= calls:
-            break
-        log(f"{name_part}: {len(us)} kernels seen in {calls} calls; again")
-    check(calls // 2 <= len(us) <= calls,
-          f"{name_part}: {len(us)} kernels seen in {calls} calls")
-    return sum(us) / 1e3 / len(us)
 
 
 def run_prof_tile(smi):
@@ -866,6 +809,8 @@ def profile_mvs(images, recon, smi):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from sfm_tpu_torch.tools.measure import kernel_named
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         dense, wall = run_mvs(images, recon, kernels=None)
 
@@ -1119,12 +1064,23 @@ def budget_patched(pairs):
         pipeline.chunk_budget_bytes = real
 
 
+def sfm_resident_bytes(cfg, n, h, w, n_pairs):
+    """What the SfM stage holds besides a chunk of the pair program: the
+    gray stack (f32 and its bf16 copy), K1's response, the feature set,
+    RANSAC's uniforms (f64) and the pair outputs."""
+    k, m = cfg.features.max_corners, cfg.features.max_matches
+    d = (2 * cfg.features.desc_wid + 1) ** 2
+    return (n * h * w * (4 + 2 + 4) + n * k * (8 + 1 + 4 * d)
+            + n_pairs * cfg.ransac.num_hypotheses * 8 * 8
+            + n_pairs * (m * 8 * 4 + 4 * 4 + 9 * 4))
+
+
 def run_allpairs(images, calib, seq4, smi):
     """Phase 18: all-pairs SfM (1,128 pairs on 48 frames) at the CLI
     defaults with the CUDA kernels, K1 / K2 counted from 0 around the stage
     and the peak device memory reset before it; the same stage with every
-    pair in one chunk (its peak measured; an out-of-memory there is logged,
-    not failed); points-only and joint BA and MVS on its result; and the
+    pair in one chunk (its peak measured; skipped, with its reason logged,
+    where the estimate exceeds the free memory); points-only and joint BA and MVS on its result; and the
     sequential problem forced into >= 3 chunks, held to phase 4's."""
     import numpy as np
     import torch
@@ -1153,14 +1109,7 @@ def run_allpairs(images, calib, seq4, smi):
     n_pairs = n * (n - 1) // 2
     per_pair = pipeline.pair_working_bytes(cfg)
     budget = pipeline.chunk_budget_bytes(dev)
-    k, m = cfg.features.max_corners, cfg.features.max_matches
-    d = (2 * cfg.features.desc_wid + 1) ** 2
-    # What the stage holds besides a chunk's working set: the gray stack
-    # (f32 and its bf16 copy), K1's response, the feature set, RANSAC's
-    # uniforms (f64) and the pair outputs.
-    resident = (n * h * w * (4 + 2 + 4) + n * k * (8 + 1 + 4 * d)
-                + n_pairs * cfg.ransac.num_hypotheses * 8 * 8
-                + n_pairs * (m * 8 * 4 + 4 * 4 + 9 * 4))
+    resident = sfm_resident_bytes(cfg, n, h, w, n_pairs)
     out = {"pairs": n_pairs, "per_pair_bytes": per_pair,
            "chunk_budget_bytes": budget, "resident_bytes": resident,
            "pairs_per_chunk": pipeline.pairs_per_chunk(cfg, dev)}
@@ -1222,10 +1171,20 @@ def run_allpairs(images, calib, seq4, smi):
                        "top_device_ms": [[k_, round(v, 3)] for k_, v in top]}
     log("all-pairs SfM under the profiler: " + json.dumps(out["profiled"]))
 
-    # Every pair in one chunk: the working set the chunking bounds.
+    # Every pair in one chunk: the working set the chunking bounds.  Run
+    # only where the code's own estimate of it fits the free memory (said
+    # on a line of its own when it does not); an out-of-memory error in a
+    # run that was judged to fit fails like any other.
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    try:
+    need = per_pair * n_pairs + resident
+    free = torch.cuda.mem_get_info(dev)[0]
+    if need > free:
+        unchunked = {"skipped": f"estimated {need} bytes > {free} free"}
+        log(f"all-pairs SfM in one chunk: skipped, its estimated {need} bytes "
+            f"({n_pairs} pairs x {per_pair} + {resident} resident) exceed the "
+            f"{free} bytes free")
+    else:
         with budget_patched(n_pairs):
             one, one_wall = run_sfm(images, calib, kernels=True,
                                     pair_mode="combination")
@@ -1233,12 +1192,11 @@ def run_allpairs(images, calib, seq4, smi):
                 and np.array_equal(one.track_obs, recon.track_obs))
         unchunked = {"sfm_s": one_wall, "chunks": one.metrics.values["pair_chunks"],
                      "peak_bytes": torch.cuda.max_memory_allocated(),
+                     "estimated_bytes": need, "free_bytes": free,
                      "tracks": one.num_tracks, "track_obs_equal": same,
                      "pair_geometry_s": one.timers.times["pair_geometry"]}
         check(abs(one.num_tracks - recon.num_tracks) <= 0.005 * recon.num_tracks,
               "one chunk and chunked all-pairs tracks within 0.5 %")
-    except torch.cuda.OutOfMemoryError as e:
-        unchunked = {"out_of_memory": str(e).splitlines()[0]}
     torch.cuda.empty_cache()
     out["unchunked"] = unchunked
     log(f"all-pairs SfM in one chunk of {n_pairs} pairs: " + json.dumps(unchunked))
@@ -1309,6 +1267,7 @@ def run_cli_flags(ds, par, tmp):
     from sfm_tpu_torch.io.ply import read_ply
     from sfm_tpu_torch.ops.gather import sample_normalized_patches
     from sfm_tpu_torch.ops.harris import harris_response
+    from sfm_tpu_torch.tools.measure import kernel_named
 
     try:
         import matplotlib  # noqa: F401
@@ -1357,7 +1316,202 @@ def run_cli_flags(ds, par, tmp):
     return res
 
 
+# The JAX package's records of the two scale workloads (TPU v5e runs, in
+# the repository): their outputs are compared with the port's, never their
+# times.
+STRESS_RECORD = "STRESS_r05.json"
+BA_SCALE_RECORD = "BA_SCALE_r05.txt"
+BA_RMS_ATOL = 0.01
+
+
+def run_stress(smi):
+    """Phase 20: the stress ring at 96 x 1280 x 960 through
+    ``sfm_tpu_torch.tools.stress_scale``: K1 bit-equal to ``_harris_math``
+    on the whole integer gray stack; K2 against its plain version at the
+    SfM descriptors' 393,216 integer centres (one bf16 ulp, mask equal to
+    ``_inbounds``, one device kernel a call) and at one expansion round's
+    centres; SfM, BA and MVS with the launches counted (SfM's gates, the
+    pair chunks, peak memory under the chunk budget plus the resident bytes;
+    BA's rms; the four gates of the JAX tool's artifact); one warm repeat
+    with the same cloud size; the JAX record's outputs beside the port's.
+    Returns K1's and K2's numbers at this shape (``kernels``) and K2's
+    error at a round's centres."""
+    import numpy as np
+    import torch
+
+    from sfm_tpu_torch.io.images import device_gray
+    from sfm_tpu_torch.ops.gather import _sample_plain, sample_normalized_patches
+    from sfm_tpu_torch.ops.harris import _harris_math, harris_response
+    from sfm_tpu_torch.ops.ncc import _inbounds
+    from sfm_tpu_torch.sfm import pipeline
+    from sfm_tpu_torch.tools import stress_scale as st
+
+    n, w, h = 96, 1280, 960
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    images, calib = st.make_scene(n, w, h)
+    log(f"stress ring {images.shape} rendered in {time.perf_counter() - t0:.2f} s "
+        f"on {os.cpu_count()} threads")
+    cfg = st.stress_config(device="cuda")
+    torch.cuda.empty_cache()
+
+    gray = device_gray(images, dev)
+    check(gray.shape == (n, h, w) and bool((gray == gray.round()).all()),
+          "stress gray stack is integer")
+    check(torch.equal(harris_response(gray, 0.04), _harris_math(gray, 0.04)),
+          f"K1 bit-equal to _harris_math on {tuple(gray.shape)}")
+    stack = gray.to(torch.bfloat16)
+    img, ctr = st.feature_samples(gray, cfg.features)
+    got, inb = sample_normalized_patches(stack, img, ctr, WID)
+    want = _sample_plain(stack, img, ctr, WID)
+    ulps = bf16_ulps(got, want)
+    check(img.numel() == n * cfg.features.max_corners, f"{img.numel()} samples")
+    check(ulps <= 1.0, f"K2 at the stress descriptors: {ulps} bf16 ulps > 1")
+    check(torch.equal(inb, _inbounds(ctr[:, 0], ctr[:, 1], h, w, WID)),
+          "K2 mask at the stress descriptors equal to _inbounds")
+    per_call = host_and_device(
+        lambda: sample_normalized_patches(stack, img, ctr, WID), calls=10)
+    check(per_call["launches"] == 1.0,
+          f"a K2 call at the stress descriptors is {per_call['launches']} kernels")
+    log(f"K1 bit-equal on {tuple(gray.shape)}; K2 at {img.numel()} integer "
+        f"centres: {ulps:.2f} bf16 ulps, mask equal, in-bounds {int(inb.sum())}, "
+        f"{per_call['launches']} device kernel a call")
+    del got, want, inb
+    torch.cuda.empty_cache()
+
+    # A copy of the stack misses the grayscale cache that the checks above
+    # filled, so the cold SfM stage pays its conversion and upload.
+    fresh = images.copy()
+    run = st.run_stages(fresh, calib, cfg, emit=log)
+    result = st.result_record(run, n, w, h)
+    log("stress RESULT " + json.dumps(result))
+    recon, sfm = run["recon"], run["sfm"]
+    launches = st.run_launches(run)
+    budget = pipeline.chunk_budget_bytes(dev)
+    resident = sfm_resident_bytes(cfg, n, h, w, n - 1)
+    check(sfm["tracks"] > 500 and sfm["mean_pair_reproj"] < 0.3,
+          f"stress SfM: {sfm['tracks']} tracks, {sfm['mean_pair_reproj']} px")
+    check(sfm["pair_chunks"] >= 1, "stress SfM pair chunks")
+    check(sfm["peak_device_bytes"] <= budget + resident,
+          f"stress SfM peak {sfm['peak_device_bytes']} > chunk budget {budget} "
+          f"+ resident {resident}")
+    check(sfm["launches"] == {"harris_response": 1, "sample_normalized_patches": 1},
+          f"stress SfM launches {sfm['launches']}")
+    check(run["ba"]["launches"] == {"harris_response": 0,
+                                    "sample_normalized_patches": 0},
+          "stress BA launched an image kernel")
+    check(run["mvs"]["launches"]["sample_normalized_patches"] > 0
+          and run["mvs"]["launches"]["harris_response"] == 0,
+          f"stress MVS launches {run['mvs']['launches']}")
+    ba = run["ba"]
+    check(ba["rms_px"] < 0.3 and ba["rms_px"] <= ba["rms_before_px"],
+          f"stress BA rms {ba['rms_before_px']} -> {ba['rms_px']}")
+    k2_round = check_k2_mvs_round(gray, calib, recon)
+
+    warm = st.run_stages(fresh, calib, cfg, emit=lambda line: None)
+    warm_rec = st.warm_record(warm, n)
+    log("stress WARM " + json.dumps(warm_rec))
+    check(warm_rec["dense_points"] == result["dense_points"],
+          "the warm repeat gave another cloud size")
+    checks, passed = st.check_gates(result, [result["dense_points"],
+                                             warm_rec["dense_points"]])
+    log("stress gates (STRESS_r05.json's, less matcher_mfu): " + json.dumps(checks))
+    check(passed, f"stress gates failed: {checks}")
+
+    with open(os.path.join(HERE, STRESS_RECORD)) as f:
+        record = json.load(f)["cold"]
+    keys = ("tracks", "rms_px", "seeds", "dense_points", "rounds",
+            "sphere_dist_median", "sphere_dist_p95", "candidates_over_capacity",
+            "backlog_remaining")
+    log(f"stress outputs, the port on {smi} beside {STRESS_RECORD} (a TPU "
+        "v5e run of the JAX package; outputs only, not gates): " + json.dumps(
+            {k: {"port": result[k], "jax_record": record[k]} for k in keys}))
+
+    kern = st.kernel_record(images, cfg, launches)
+    log("stress kernels: " + json.dumps(kern))
+    del gray, stack
+    torch.cuda.empty_cache()
+    return {"kernels": kern, "k2_round_max_abs_err": k2_round["max_abs_err"]}
+
+
+def ba_scale_record():
+    """BA_SCALE_r05.txt's solves: label -> (rms px, iterations)."""
+    out = {}
+    with open(os.path.join(HERE, BA_SCALE_RECORD)) as f:
+        for line in f:
+            if line.startswith('{"label"'):
+                rec = json.loads(line)
+                out[rec["label"]] = (rec["rms_px"], rec["iterations"])
+    return out
+
+
+def run_ba_scale(smi):
+    """Phase 21: ``sfm_tpu_torch.tools.ba_scale``'s four solves with one
+    timed repeat each: every label's final rms within 0.01 px of
+    BA_SCALE_r05.txt's (the same problem; iterations printed beside the
+    record's, not held: float32 on another chip may stop one iteration
+    apart at ftol), dense against PCG below 5e-3, and the 8-virtual-shard
+    equality on cuda:0; the dense solve's peak memory."""
+    import torch
+
+    from sfm_tpu_torch.tools import ba_scale as bs
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    prob = bs.synth_problem(256, 100_000, 1_000_000, device=dev)
+    small = bs.synth_problem(256, bs.SLICE_POINTS, bs.SLICE_OBS, seed=bs.SLICE_SEED,
+                             device=dev)
+    recs, gate, agree = bs.labelled_solves(prob, small, iters=20, reps=1, emit=log)
+    record = ba_scale_record()
+    check(set(record) == set(recs), f"labels {sorted(recs)} != {sorted(record)}")
+    side = {}
+    for label, rec in recs.items():
+        rms, iters = record[label]
+        side[label] = {"rms_px": rec["rms_px"], "record_rms_px": rms,
+                       "iterations": rec["iterations"], "record_iterations": iters,
+                       "wall_s": rec["wall_s"]}
+        check(abs(rec["rms_px"] - rms) <= BA_RMS_ATOL,
+              f"{label}: rms {rec['rms_px']} vs the record's {rms}")
+    log(f"BA at scale on {smi}, beside {BA_SCALE_RECORD} (a TPU v5e run; "
+        "outputs only): " + json.dumps(side))
+    check(agree["agree"], f"dense and PCG differ: {agree}")
+    dense_peak = recs["joint_dense_256c_200k"]["peak_device_bytes"]
+    log(f"dense solve of the 200k slice: peak {dense_peak} bytes; the port's "
+        f"dense gate would choose {gate['ba_dense_schur_decided_by']!r} "
+        f"({gate['ba_dense_schur_pairs']} pairs, "
+        f"{gate['ba_dense_schur_pair_bytes']} pair bytes, JAX grid bytes "
+        f"{gate['ba_dense_schur_grid_bytes']})")
+    eq = bs.equality(prob, iters=20, emit=log)
+    check(eq["pass"], f"8 virtual shards against one device: {eq}")
+
+
+def run_quality_parity():
+    """Phase 22: ``quality_torch``'s ba_solver_parity on the card: the model
+    check within 0.02 px of the reference's rms, the port's joint solve
+    <= 1.05x it."""
+    import quality_torch
+
+    ref = quality_torch._load_ref()["dino48_sparse"]["internal_rms_px"]
+    c = quality_torch.ba_solver_parity(ref, "cuda")
+    log("quality_torch ba_solver_parity on the card: " + json.dumps(c))
+    check(abs(c["model_check_rms_at_ref_solution"] - c["reference_rms"]) < 0.02,
+          "ba_solver_parity: the 12-param model does not reproduce the "
+          "reference's rms at its solution")
+    check(c["ours_rms"] <= 1.05 * c["reference_rms"] and c["pass"],
+          f"ba_solver_parity: {c['ours_rms']} > 1.05 x {c['reference_rms']}")
+
+
+def stress_entry(stress, name):
+    """A kernel's numbers at the stress shape (phase 20), for its entry of
+    the ``kernels`` line."""
+    k = stress["kernels"][name]
+    return {"kernel_only_ms_stress": k["kernel_only_ms"],
+            "bound_ms_stress": k["bound_ms"], "launches_stress": k["launches"],
+            "shape_stress": k["shape"]}
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -1366,6 +1520,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("error: torch.cuda.is_available() is False; chip_smoke needs a "
               "CUDA device", file=sys.stderr)
+        return 1
+    try:
+        import PIL  # noqa: F401  (the CLI reads and writes PNGs with it)
+    except ImportError:
+        print("error: Pillow is not installed; the CLI phases need it",
+              file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
     try:
@@ -1380,6 +1540,7 @@ def main() -> int:
         sample_normalized_patches_sharded,
     )
     from sfm_tpu_torch.ops.harris import _harris_math, harris_response
+    from sfm_tpu_torch.tools.measure import gather_bound, harris_bound, kernel_only_ms
     from sfm_tpu_torch.utils import build
 
     import numpy as np
@@ -1446,33 +1607,26 @@ def main() -> int:
           "kernel and plain SfM track counts within 10%")
 
     # --- 5. the CLI on the scene written as a Middlebury dataset ------------
-    try:
-        import PIL  # noqa: F401
-        have_pil = True
-    except ImportError:
-        have_pil = False
-    log(f"CLI phase: {'runs' if have_pil else 'skipped (Pillow not installed)'}")
-    if have_pil:
-        from sfm_tpu_torch.cli import main as cli_main
-        from sfm_tpu_torch.io.ply import read_ply
-        from sfm_tpu_torch.utils import synth
+    from sfm_tpu_torch.cli import main as cli_main
+    from sfm_tpu_torch.io.ply import read_ply
+    from sfm_tpu_torch.utils import synth
 
-        with tempfile.TemporaryDirectory() as tmp:
-            ds = os.path.join(tmp, "ring")
-            _, par, _ = synth.write_middlebury_dataset(
-                ds, centers=synth.ring_rig(N_FRAMES), w=WIDTH, h=HEIGHT,
-                image_type="png", spheres=(((0.0, 0.0, 0.0), 1.0),), seed=0,
-            )
-            out = os.path.join(tmp, "out")
-            rc = cli_main(["-img_p", ds, "-par_p", par, "-t", "png",
-                           "--stages", "sfm", "--out_dir", out])
-            check(rc == 0, f"CLI exit code {rc}")
-            pts, _ = read_ply(os.path.join(out, "sparse_points.ply"))
-            med_c, p95_c = sphere_bounds(pts.astype("float64"))
-            log(f"CLI: {pts.shape[0]} sparse points, sphere median {med_c:.2e} "
-                f"p95 {p95_c:.2e}")
-            check(pts.shape[0] > 500 and med_c < 0.01 and p95_c < 0.05,
-                  "CLI sparse cloud on the sphere")
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = os.path.join(tmp, "ring")
+        _, par, _ = synth.write_middlebury_dataset(
+            ds, centers=synth.ring_rig(N_FRAMES), w=WIDTH, h=HEIGHT,
+            image_type="png", spheres=(((0.0, 0.0, 0.0), 1.0),), seed=0,
+        )
+        out = os.path.join(tmp, "out")
+        rc = cli_main(["-img_p", ds, "-par_p", par, "-t", "png",
+                       "--stages", "sfm", "--out_dir", out])
+        check(rc == 0, f"CLI exit code {rc}")
+        pts, _ = read_ply(os.path.join(out, "sparse_points.ply"))
+        med_c, p95_c = sphere_bounds(pts.astype("float64"))
+        log(f"CLI: {pts.shape[0]} sparse points, sphere median {med_c:.2e} "
+            f"p95 {p95_c:.2e}")
+        check(pts.shape[0] > 500 and med_c < 0.01 and p95_c < 0.05,
+              "CLI sparse cloud on the sphere")
 
     # --- 6. kernel times against the plain versions -------------------------
     (img_i, ctr_i), (img_f, ctr_f) = k2_in
@@ -1548,36 +1702,35 @@ def main() -> int:
     # --- 10. the CLI, default stages sfm,ba,mvs, on the written dataset -----
     # (phase 13 runs the CLI on the same dataset)
     tmp_cli = tempfile.TemporaryDirectory()
-    if have_pil:
-        with contextlib.nullcontext(tmp_cli.name) as tmp:
-            ds = os.path.join(tmp, "ring")
-            _, par, _ = synth.write_middlebury_dataset(
-                ds, centers=synth.ring_rig(N_FRAMES), w=WIDTH, h=HEIGHT,
-                image_type="png", spheres=(((0.0, 0.0, 0.0), 1.0),), seed=0,
-            )
-            out = os.path.join(tmp, "out")
-            t0 = time.perf_counter()
-            rc = cli_main(["-img_p", ds, "-par_p", par, "-t", "png",
-                           "--out_dir", out])
-            cli_wall = time.perf_counter() - t0
-            check(rc == 0, f"CLI exit code {rc}")
-            clouds = {name: read_ply(os.path.join(out, name + ".ply"))
-                      for name in ("sparse_points", "sparse_points_ba",
-                                   "initial_patches", "all_patches")}
-            pts = clouds["sparse_points"][0].astype("float64")
-            med_c, p95_c = sphere_bounds(pts)
-            dpts = clouds["all_patches"][0].astype("float64")
-            dmed, dp90, _ = dense_bounds(dpts, dpts)
-            log(f"CLI (sfm,ba,mvs) in {cli_wall:.2f} s: "
-                + ", ".join(f"{k} {v[0].shape[0]}" for k, v in clouds.items())
-                + f"; sparse median {med_c:.2e} p95 {p95_c:.2e}; dense median "
-                f"{dmed:.2e} p90 {dp90:.2e}")
-            check(pts.shape[0] > 500 and med_c < 0.01 and p95_c < 0.05,
-                  "CLI sparse cloud on the sphere")
-            check(clouds["sparse_points_ba"][0].shape == pts.shape, "CLI BA cloud")
-            check(dpts.shape[0] > 10000 and dmed < 0.02 and dp90 < 0.06,
-                  "CLI dense cloud on the sphere")
-            check(clouds["all_patches"][1] is not None, "CLI dense colors")
+    tmp = tmp_cli.name
+    ds = os.path.join(tmp, "ring")
+    _, par, _ = synth.write_middlebury_dataset(
+        ds, centers=synth.ring_rig(N_FRAMES), w=WIDTH, h=HEIGHT,
+        image_type="png", spheres=(((0.0, 0.0, 0.0), 1.0),), seed=0,
+    )
+    out = os.path.join(tmp, "out")
+    t0 = time.perf_counter()
+    rc = cli_main(["-img_p", ds, "-par_p", par, "-t", "png",
+                   "--out_dir", out])
+    cli_wall = time.perf_counter() - t0
+    check(rc == 0, f"CLI exit code {rc}")
+    clouds = {name: read_ply(os.path.join(out, name + ".ply"))
+              for name in ("sparse_points", "sparse_points_ba",
+                           "initial_patches", "all_patches")}
+    pts = clouds["sparse_points"][0].astype("float64")
+    med_c, p95_c = sphere_bounds(pts)
+    dpts = clouds["all_patches"][0].astype("float64")
+    dmed, dp90, _ = dense_bounds(dpts, dpts)
+    log(f"CLI (sfm,ba,mvs) in {cli_wall:.2f} s: "
+        + ", ".join(f"{k} {v[0].shape[0]}" for k, v in clouds.items())
+        + f"; sparse median {med_c:.2e} p95 {p95_c:.2e}; dense median "
+        f"{dmed:.2e} p90 {dp90:.2e}")
+    check(pts.shape[0] > 500 and med_c < 0.01 and p95_c < 0.05,
+          "CLI sparse cloud on the sphere")
+    check(clouds["sparse_points_ba"][0].shape == pts.shape, "CLI BA cloud")
+    check(dpts.shape[0] > 10000 and dmed < 0.02 and dp90 < 0.06,
+          "CLI dense cloud on the sphere")
+    check(clouds["all_patches"][1] is not None, "CLI dense colors")
 
     log(f"stage walls on {smi}: " + json.dumps({
         "sfm_s": wall, "sfm_plain_s": plain_wall_sfm, "ba_s": ba_wall,
@@ -1609,35 +1762,34 @@ def main() -> int:
         log("SfM, BA and MVS over 2 or more GPUs: skipped (one GPU)")
 
     # --- 13. the CLI with --mesh_devices 4 on phase 10's dataset -------------
-    if have_pil:
-        from sfm_tpu_torch.cli import run_mesh
-        from sfm_tpu_torch.config import PipelineConfig, RuntimeConfig
+    from sfm_tpu_torch.cli import run_mesh
+    from sfm_tpu_torch.config import PipelineConfig, RuntimeConfig
 
-        cli_mesh = run_mesh(PipelineConfig(
-            runtime=RuntimeConfig(mesh_shape=SHARDS, device="cuda")))
-        out = os.path.join(tmp_cli.name, "out_mesh")
-        t0 = time.perf_counter()
-        rc = cli_main(["-img_p", ds, "-par_p", par, "-t", "png",
-                       "--mesh_devices", str(SHARDS), "--out_dir", out])
-        mesh_cli_wall = time.perf_counter() - t0
-        check(rc == 0, f"CLI --mesh_devices exit code {rc}")
-        clouds = {name: read_ply(os.path.join(out, name + ".ply"))[0]
-                  for name in ("sparse_points", "sparse_points_ba",
-                               "initial_patches", "all_patches")}
-        med_c, p95_c = sphere_bounds(clouds["sparse_points"].astype("float64"))
-        dpts = clouds["all_patches"].astype("float64")
-        dmed, dp90, _ = dense_bounds(dpts, dpts)
-        log(f"CLI --mesh_devices {SHARDS} (a mesh of {cli_mesh.size} device(s) "
-            f"here) in {mesh_cli_wall:.2f} s: "
-            + ", ".join(f"{k} {v.shape[0]}" for k, v in clouds.items())
-            + f"; sparse median {med_c:.2e} p95 {p95_c:.2e}; dense median "
-            f"{dmed:.2e} p90 {dp90:.2e}")
-        check(clouds["sparse_points"].shape[0] > 500 and med_c < 0.01
-              and p95_c < 0.05, "CLI --mesh_devices sparse cloud on the sphere")
-        check(clouds["sparse_points_ba"].shape == clouds["sparse_points"].shape,
-              "CLI --mesh_devices BA cloud")
-        check(dpts.shape[0] > 10000 and dmed < 0.02 and dp90 < 0.06,
-              "CLI --mesh_devices dense cloud on the sphere")
+    cli_mesh = run_mesh(PipelineConfig(
+        runtime=RuntimeConfig(mesh_shape=SHARDS, device="cuda")))
+    out = os.path.join(tmp_cli.name, "out_mesh")
+    t0 = time.perf_counter()
+    rc = cli_main(["-img_p", ds, "-par_p", par, "-t", "png",
+                   "--mesh_devices", str(SHARDS), "--out_dir", out])
+    mesh_cli_wall = time.perf_counter() - t0
+    check(rc == 0, f"CLI --mesh_devices exit code {rc}")
+    clouds = {name: read_ply(os.path.join(out, name + ".ply"))[0]
+              for name in ("sparse_points", "sparse_points_ba",
+                           "initial_patches", "all_patches")}
+    med_c, p95_c = sphere_bounds(clouds["sparse_points"].astype("float64"))
+    dpts = clouds["all_patches"].astype("float64")
+    dmed, dp90, _ = dense_bounds(dpts, dpts)
+    log(f"CLI --mesh_devices {SHARDS} (a mesh of {cli_mesh.size} device(s) "
+        f"here) in {mesh_cli_wall:.2f} s: "
+        + ", ".join(f"{k} {v.shape[0]}" for k, v in clouds.items())
+        + f"; sparse median {med_c:.2e} p95 {p95_c:.2e}; dense median "
+        f"{dmed:.2e} p90 {dp90:.2e}")
+    check(clouds["sparse_points"].shape[0] > 500 and med_c < 0.01
+          and p95_c < 0.05, "CLI --mesh_devices sparse cloud on the sphere")
+    check(clouds["sparse_points_ba"].shape == clouds["sparse_points"].shape,
+          "CLI --mesh_devices BA cloud")
+    check(dpts.shape[0] > 10000 and dmed < 0.02 and dp90 < 0.06,
+          "CLI --mesh_devices dense cloud on the sphere")
 
     # --- 14. K3 against its plain versions and K2; the tool's sweep ----------
     from sfm_tpu_torch.ops.gather_tile import sample_normalized_patches_tiled
@@ -1728,29 +1880,28 @@ def main() -> int:
         f"wall {r_wall:.4f} s (uninterrupted, no saves {mvs_wall:.4f} s)")
     check(same and resumed.num_seeds == dense.num_seeds,
           "resumed cloud differs from the uninterrupted one")
-    if have_pil:
-        ck = os.path.join(tmp_cli.name, "ckpt")
-        outs = [os.path.join(tmp_cli.name, f"out_ck{i}") for i in (0, 1)]
-        base = ["-img_p", ds, "-par_p", par, "-t", "png", "--checkpoint_dir", ck]
-        t0 = time.perf_counter()
-        rc = cli_main(base + ["--out_dir", outs[0]])
-        ck_wall = time.perf_counter() - t0
-        check(rc == 0, f"CLI --checkpoint_dir exit code {rc}")
-        check(sorted(os.listdir(ck)) == ["ba.npz", "sfm.npz"],
-              f"checkpoint files {os.listdir(ck)}")
-        t0 = time.perf_counter()
-        rc = cli_main(base + ["--out_dir", outs[1], "--stages", "mvs"])
-        mvs_only_wall = time.perf_counter() - t0
-        check(rc == 0, f"CLI --stages mvs exit code {rc}")
-        a, b = (read_ply(os.path.join(o, "all_patches.ply")) for o in outs)
-        check(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]),
-              "--stages mvs from the files gave another cloud")
-        dmed, dp90, _ = dense_bounds(a[0].astype("float64"), a[0].astype("float64"))
-        check(a[0].shape[0] > 10000 and dmed < 0.02 and dp90 < 0.06,
-              "CLI --checkpoint_dir dense cloud on the sphere")
-        log(f"CLI --checkpoint_dir in {ck_wall:.2f} s (sfm.npz, ba.npz), then "
-            f"--stages mvs alone from the files in {mvs_only_wall:.2f} s: "
-            f"{b[0].shape[0]} dense points, the same cloud")
+    ck = os.path.join(tmp_cli.name, "ckpt")
+    outs = [os.path.join(tmp_cli.name, f"out_ck{i}") for i in (0, 1)]
+    base = ["-img_p", ds, "-par_p", par, "-t", "png", "--checkpoint_dir", ck]
+    t0 = time.perf_counter()
+    rc = cli_main(base + ["--out_dir", outs[0]])
+    ck_wall = time.perf_counter() - t0
+    check(rc == 0, f"CLI --checkpoint_dir exit code {rc}")
+    check(sorted(os.listdir(ck)) == ["ba.npz", "sfm.npz"],
+          f"checkpoint files {os.listdir(ck)}")
+    t0 = time.perf_counter()
+    rc = cli_main(base + ["--out_dir", outs[1], "--stages", "mvs"])
+    mvs_only_wall = time.perf_counter() - t0
+    check(rc == 0, f"CLI --stages mvs exit code {rc}")
+    a, b = (read_ply(os.path.join(o, "all_patches.ply")) for o in outs)
+    check(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]),
+          "--stages mvs from the files gave another cloud")
+    dmed, dp90, _ = dense_bounds(a[0].astype("float64"), a[0].astype("float64"))
+    check(a[0].shape[0] > 10000 and dmed < 0.02 and dp90 < 0.06,
+          "CLI --checkpoint_dir dense cloud on the sphere")
+    log(f"CLI --checkpoint_dir in {ck_wall:.2f} s (sfm.npz, ba.npz), then "
+        f"--stages mvs alone from the files in {mvs_only_wall:.2f} s: "
+        f"{b[0].shape[0]} dense points, the same cloud")
 
     # --- 17. joint bundle adjustment, both camera solvers --------------------
     joint = {}
@@ -1780,9 +1931,23 @@ def main() -> int:
     allpairs = run_allpairs(images, calib, sparse4, smi)
 
     # --- 19. the CLI with --nonSequence, --profile_dir (--debug, --plot) ----
-    if have_pil:
-        run_cli_flags(ds, par, tmp_cli.name)
+    run_cli_flags(ds, par, tmp_cli.name)
     tmp_cli.cleanup()
+
+    # --- 20. the stress ring at 96 x 1280 x 960 ------------------------------
+    t0 = time.perf_counter()
+    stress = run_stress(smi)
+    log(f"phase 20 (stress ring) wall {time.perf_counter() - t0:.2f} s")
+
+    # --- 21. bundle adjustment at 1M observations ----------------------------
+    t0 = time.perf_counter()
+    run_ba_scale(smi)
+    log(f"phase 21 (BA at scale) wall {time.perf_counter() - t0:.2f} s")
+
+    # --- 22. the quality harness's solver parity on the card -----------------
+    t0 = time.perf_counter()
+    run_quality_parity()
+    log(f"phase 22 (ba_solver_parity) wall {time.perf_counter() - t0:.2f} s")
 
     log(f"stage walls at {SHARDS} virtual shards on {smi}: " + json.dumps({
         "sfm_s": sh["sfm_s"], "ba_s": sh["ba_s"], "mvs_s": sh["mvs_s"],
@@ -1806,10 +1971,11 @@ def main() -> int:
          "max_abs_err": k1["max_abs_err"], "ms": t["k1"], "plain_ms": t["k1_plain"],
          # f32 in, f32 out; ~55 operations per pixel (two Sobels, three
          # products, three 3x3 box sums, det - k trace^2).
-         **bound(2 * 4 * n_px, 55 * n_px), "library_ms": None,
+         **harris_bound(n_px), "library_ms": None,
          "kernel_only_ms": kernel_only["k1"],
          "nonint_rel_err": k1_shapes["nonint_rel_err"],
-         "shape": list(gray.shape)},
+         "shape": list(gray.shape),
+         **stress_entry(stress, "harris_response")},
         {"name": "sample_normalized_patches", "route": "cuda",
          "source": "sfm_tpu_torch/csrc/gather.cu",
          "replaces": "sfm_tpu/ops/gather.py:112",
@@ -1817,20 +1983,23 @@ def main() -> int:
          "launches_allpairs": allpairs["launches"]["sample_normalized_patches"],
          "launches_allpairs_mvs": allpairs["mvs"]["launches"]["sample_normalized_patches"],
          "max_abs_err": max(k2.values()), "ms": t["k2_int"],
-         "plain_ms": t["k2_int_plain"], **gather_bound(gray_bf16, img_i.numel()),
+         "plain_ms": t["k2_int_plain"], **gather_bound(gray_bf16.numel(), img_i.numel()),
          "library_ms": None, "kernel_only_ms": kernel_only["k2_int"],
          "device_kernels_per_call": k2s["one_call"]["launches"],
          "host_us_per_call": k2s["one_call"]["host_us"],
          "samples": img_i.numel(),
          "ms_fractional": t["k2_frac"], "plain_ms_fractional": t["k2_frac_plain"],
-         "bound_ms_fractional": gather_bound(gray_bf16, img_f.numel())["bound_ms"],
+         "bound_ms_fractional": gather_bound(gray_bf16.numel(), img_f.numel())["bound_ms"],
          "kernel_only_ms_fractional": kernel_only["k2_frac"],
          "samples_fractional": img_f.numel(),
          "launches_mvs": launches_mvs,
          "launches_filter": f_seen["launches"],
          "samples_filter": f_seen["samples"],
          "mvs_share": prof["k2_ms"] / 1e3 / prof["wall_s"],
-         "max_abs_err_mvs_round": k2_round["max_abs_err"]},
+         "max_abs_err_mvs_round": k2_round["max_abs_err"],
+         **stress_entry(stress, "sample_normalized_patches"),
+         "samples_stress": stress["kernels"]["sample_normalized_patches"]["samples"],
+         "max_abs_err_mvs_round_stress": stress["k2_round_max_abs_err"]},
         {"name": "sample_normalized_patches_sharded", "route": "cuda",
          "source": "sfm_tpu_torch/csrc/gather.cu",
          "replaces": "sfm_tpu/ops/gather.py:264",
@@ -1839,7 +2008,7 @@ def main() -> int:
          "max_abs_err": k2s["max_abs_err"],
          "max_abs_err_plain": k2s["max_abs_err_plain"],
          "ms": k2s["ms"], "single_call_ms": k2s["single_call_ms"],
-         "plain_ms": t["k2_frac_plain"], **gather_bound(gray_bf16, img_f.numel()),
+         "plain_ms": t["k2_frac_plain"], **gather_bound(gray_bf16.numel(), img_f.numel()),
          "library_ms": None, "samples": img_f.numel()},
         {"name": "sample_normalized_patches_tiled", "route": "cuda",
          "source": "sfm_tpu_torch/csrc/gather_tile.cu",
@@ -1847,7 +2016,7 @@ def main() -> int:
          "launches": k3_launches,
          "max_abs_err": k3["max_abs_err"], "bit_equal_k2": k3["bit_equal_k2"],
          "ms": k3_t["ms"], "plain_ms": k3_t["plain_ms"],
-         **gather_bound(tg, ti.numel()), "library_ms": None,
+         **gather_bound(tg.numel(), ti.numel()), "library_ms": None,
          "kernel_only_ms": k3_t["kernel_only_ms"],
          "kernel_only_ms_rows_route": k3_t["kernel_only_ms_rows_route"],
          "staging_routes": k3_routes,
@@ -1856,6 +2025,7 @@ def main() -> int:
          "samples": ti.numel(), "ms_by_mode": k3_modes,
          "kernel_only_ms_by_mode": k3_modes_kernel_only},
     ]
+    log(f"chip_smoke wall {time.perf_counter() - t_start:.2f} s on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -49,10 +49,17 @@ def dense_gate(recon: SparseReconstruction, config: BaConfig) -> dict:
     problem to PCG ("max_cams", "grid_bytes", "pair_bytes"); "frozen" for
     a points-only solve, "no_tracks" without tracks.
     """
-    n_tracks, n_cams = recon.num_tracks, recon.calib.num_views
+    return dense_gate_counts(recon.track_lengths(), recon.calib.num_views,
+                             config)
+
+
+def dense_gate_counts(track_lengths, n_cams: int, config: BaConfig) -> dict:
+    """``dense_gate`` for a problem given by its track lengths (one per
+    point, observations of that point) and camera count."""
+    n_tracks = len(track_lengths)
     itemsize = 8 if config.dtype == "float64" else 4
     pairs, pair_bytes = pair_assembly_bytes(
-        recon.track_lengths(), _pad_len(n_tracks, 1024), itemsize)
+        track_lengths, _pad_len(n_tracks, 1024), itemsize)
     grid_bytes = 4 * n_tracks * n_cams * 144
     if not config.refine_cameras:
         decided = "frozen"

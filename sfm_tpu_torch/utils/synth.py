@@ -4,12 +4,16 @@ A copy of ``sfm_tpu/utils/synth.py``, which the port cannot import (any
 ``sfm_tpu`` import pulls in jax).  Renders exact-calibration scenes: ring,
 arc, grid and irregular rigs; textured spheres (closed-form ray-sphere
 geometry, random-Fourier 3-D texture, so every point has an exact
-ground-truth surface distance).  The parity tests and ``chip_smoke.py``
-render the textured-sphere ring with it.
+ground-truth surface distance).  The parity tests, ``chip_smoke.py`` and
+``tools/stress_scale.py`` render the textured-sphere ring with it;
+``render_scene`` renders the frames on a thread pool, the same images as
+``sfm_tpu``'s one frame after another.
 """
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -113,6 +117,11 @@ def render_scene(
       texture_freq_scale: spatial-frequency multiplier; default w/320 keeps
         per-patch contrast resolution-invariant (see make_texture).
 
+    The frames render on a pool of ``min(N, os.cpu_count())`` threads, one
+    frame a task: numpy's ufuncs and matrix products release the GIL, and
+    each frame's arithmetic is that of one frame after another, so the
+    images are bit-equal to it.
+
     Returns (images uint8 (N, H, W, 3), exact Calibration).
     """
     n = centers.shape[0]
@@ -129,9 +138,9 @@ def render_scene(
                      freq_scale=texture_freq_scale)
         for i in range(len(spheres))
     ]
-    Ks, Rs, ts, imgs = [], [], [], []
     ys, xs = np.mgrid[0:h, 0:w]
-    for i in range(n):
+
+    def frame(i):
         C = centers[i].astype(np.float64)
         R, t = look_at(C, target)
         d_cam = np.stack(
@@ -156,12 +165,13 @@ def render_scene(
         img = np.repeat(
             np.clip(g, 0, 255)[..., None], 3, axis=-1
         ).astype(np.uint8)
-        Ks.append(K)
-        Rs.append(R)
-        ts.append(t)
-        imgs.append(img)
+        return R, t, img
+
+    with ThreadPoolExecutor(max_workers=min(n, os.cpu_count() or 1)) as pool:
+        frames = list(pool.map(frame, range(n)))
+    Rs, ts, imgs = zip(*frames)
     calib = Calibration(
-        K=np.stack(Ks), R=np.stack(Rs), t=np.stack(ts),
+        K=np.stack([K] * n), R=np.stack(Rs), t=np.stack(ts),
         names=tuple(f"s{i:04d}" for i in range(n)),
     )
     return np.stack(imgs), calib

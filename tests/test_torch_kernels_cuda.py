@@ -194,6 +194,7 @@ def test_k3_unaligned_base_takes_the_rows_route(smoke, stack):
         sample_normalized_patches_tiled,
         tile_route,
     )
+    from sfm_tpu_torch.tools.measure import kernel_named
 
     g = stack.to(torch.bfloat16)
     buf = torch.empty(g.numel() + 8, dtype=torch.bfloat16, device=g.device)
@@ -210,7 +211,7 @@ def test_k3_unaligned_base_takes_the_rows_route(smoke, stack):
         want = sample_normalized_patches_tiled(g, img, ctr, 5, extract=extract)
         names = smoke.device_kernel_names(lambda: sample_normalized_patches_tiled(
             view, img, ctr, 5, extract=extract))
-        assert any(smoke.kernel_named(k, "gather_tile_rows_kernel") for k in names)
+        assert any(kernel_named(k, "gather_tile_rows_kernel") for k in names)
         got = sample_normalized_patches_tiled(view, img, ctr, 5, extract=extract)
         assert torch.equal(got, want)
 
