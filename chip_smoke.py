@@ -46,7 +46,16 @@ a warm repeat, K1's and K2's kernel-only times at that shape), bundle
 adjustment at 1M observations through ``sfm_tpu_torch.tools.ba_scale``
 (each solve's rms held to ``BA_SCALE_r05.txt``'s, dense against PCG, 8
 virtual shards against one device), and ``quality_torch.py``'s solver
-parity on the reference's captured BA problem.  Each of those three
+parity on the reference's captured BA problem.  Then the mesh across
+processes (phase 23): the ring through SfM, points-only and joint BA and
+MVS in two processes of a gloo group on the card (this script again, with
+``--rank SPEC``; one shard each), the two bit-identical and held to the
+single-controller mesh of two virtual shards, with each rank's K1 / K2
+launches counted; a one-process NCCL group moving an MVS round's tensors
+and running BA, equal to the single-controller mesh; two NCCL processes
+on one GPU refused by ``data_mesh()``; and, with two or more GPUs
+(e.g. one host with four H100s), one NCCL process per GPU held to the
+single-controller mesh over them.  Each of those four
 phases prints its wall, and the script its whole wall.  It prints as its
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises and
 the exit code is nonzero.  Without CUDA, or without Pillow (the CLI
@@ -487,7 +496,8 @@ def host_and_device(fn, calls=50):
     and their summed device ms.  The profiler may lose the first events of
     a session, so the session opens with ten fills and a sync; every device
     kernel that starts after the counted window opens is counted, whatever
-    its name."""
+    its name.  It may also lose a kernel inside the window: a session whose
+    count is not a whole number a call is taken again."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -501,7 +511,8 @@ def host_and_device(fn, calls=50):
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     marker = torch.empty(1024, device="cuda")
-    for attempt in range(3):
+    sessions = 5
+    for attempt in range(sessions):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(10):
                 marker.fill_(0.0)
@@ -521,13 +532,22 @@ def host_and_device(fn, calls=50):
                   if e.device_type == torch.autograd.DeviceType.CUDA
                   and e.name != "counted_window"]
         kern = [e for e in device if e.time_range.start >= min(opened)]
-        if len(kern) < len(device):
-            break
-        # Every fill was lost, so the window's own first kernels may have
-        # been too: profile the window again.
-        log(f"profiler session {attempt + 1}: no marker fill seen; again")
-    check(len(kern) < len(device), "no marker fill seen before the window "
-          "in three profiler sessions")
+        if len(kern) == len(device):
+            # Every fill was lost, so the window's own first kernels may
+            # have been too: profile the window again.
+            log(f"profiler session {attempt + 1}: no marker fill seen; again")
+            continue
+        if len(kern) % calls:
+            # The calls are identical on identical inputs and so launch the
+            # same kernels: a count that is not a whole number a call means
+            # the profiler lost events, so profile the window again.
+            log(f"profiler session {attempt + 1}: {len(kern)} device kernels "
+                f"in {calls} identical calls; events lost, again")
+            continue
+        break
+    check(len(kern) < len(device) and len(kern) % calls == 0,
+          f"no whole count of device kernels in {sessions} profiler sessions "
+          f"(last: {len(kern)} kernels in {calls} calls)")
     return {"host_us": (t1 - t0) / calls * 1e6,
             "with_device_us": (t2 - t0) / calls * 1e6,
             "launches": len(kern) / calls,
@@ -1510,6 +1530,443 @@ def stress_entry(stress, name):
             "shape_stress": k["shape"]}
 
 
+# --- phase 23: the mesh across processes -------------------------------------
+# The ranks are this script again (``chip_smoke.py --rank SPEC``), each a
+# process of a torch.distributed group on the card.
+
+RANKS = 2
+RANK_TIMEOUT_S = 300
+ROUND_M = 32768                              # MVS round_capacity
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_pass(images, calib, mesh):
+    """SfM (kernels), points-only BA, joint BA (dense Schur) and MVS at the
+    CLI defaults over ``mesh``, each stage between a barrier and a sync;
+    returns the outputs (flat numpy), each stage's wall and its K1 / K2 /
+    K2s launches in this process."""
+    import numpy as np
+    import torch
+
+    from sfm_tpu_torch.ba import bundle_adjust
+    from sfm_tpu_torch.config import BaConfig, MvsConfig
+    from sfm_tpu_torch.mvs import dense_reconstruction
+    from sfm_tpu_torch.ops.gather import (
+        sample_normalized_patches,
+        sample_normalized_patches_sharded,
+    )
+    from sfm_tpu_torch.ops.harris import harris_response
+
+    counted = (harris_response, sample_normalized_patches,
+               sample_normalized_patches_sharded)
+    walls, launches = {}, {}
+
+    def stage(name, fn):
+        mesh.barrier()
+        torch.cuda.synchronize()
+        for f in counted:
+            f.launches = 0
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        launches[name] = {f.__name__: f.launches for f in counted}
+        mesh.barrier()
+        return result
+
+    sparse, _ = stage("sfm", lambda: run_sfm(images, calib, kernels=True, mesh=mesh))
+    ba, ba_info = stage("ba", lambda: bundle_adjust(
+        sparse_copy(sparse), BaConfig(dtype="float32"), mesh=mesh, device="cuda"))
+    joint, j_info = stage("joint_ba", lambda: bundle_adjust(
+        sparse_copy(sparse), BaConfig(dtype="float32", refine_cameras=True,
+                                      dense_schur_max_cams=256),
+        mesh=mesh, device="cuda"))
+    dense = stage("mvs", lambda: dense_reconstruction(
+        images, ba.calib, ba, MvsConfig(), scale=1.0, mesh=mesh, device="cuda"))
+    out = {
+        "sfm/track_offsets": sparse.track_offsets, "sfm/track_obs": sparse.track_obs,
+        "sfm/world": sparse.world,
+        "sfm/pair_reproj": sparse.metrics.values["mean_pair_reprojection_error_px"],
+        "ba/world": ba.world, "ba/iterations": ba_info["iterations"],
+        "ba/final_cost": ba_info["final_cost"], "ba/rms": ba.rms_reprojection_error(),
+        "joint/cams11": j_info["cams11"], "joint/world": joint.world,
+        "joint/iterations": j_info["iterations"],
+        "joint/final_cost": j_info["final_cost"],
+        "joint/solver": j_info["camera_solver"],
+        "joint/rms": j_info["rms_reproj_refined_px"],
+        "mvs/num_seeds": dense.num_seeds,
+        "mvs/rounds": dense.metrics.values["mvs_rounds"],
+    }
+    for f in ("points", "colors", "normals", "scores", "refs"):
+        out[f"mvs/{f}"] = getattr(dense, f)
+    return {k: np.asarray(v) for k, v in out.items()}, walls, launches
+
+
+def collective_ms(mesh, reps=20):
+    """What one ``gather`` and one ``psum`` cost this process: a psum of a
+    0-dim tensor (latency) and a gather of this rank's share of an MVS
+    round's projections, (32,768 / shards, 48, 2) f32, ms per call."""
+    import torch
+
+    def per_call(fn, n):
+        fn()
+        mesh.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    one = torch.ones((), device=mesh.lead)
+    proj = torch.ones((ROUND_M // mesh.size, N_FRAMES, 2), device=mesh.lead)
+    return {"psum_0d_ms": per_call(lambda: mesh.psum([one]), reps),
+            "gather_round_proj_ms": per_call(lambda: mesh.gather([proj], ROUND_M),
+                                             reps),
+            "gather_round_proj_bytes": proj.numel() * proj.element_size()}
+
+
+def rank_stages(spec):
+    """One rank of a stages run: joins the group (spec's size and backend),
+    runs
+    ``mesh_pass`` once as a warm-up (with deterministic algorithms in
+    warn-only mode, listing every op that warns, after a histc, which has
+    no deterministic CUDA version, as a probe that they are caught) and once
+    timed, times one gather and one psum, and writes its outputs, walls,
+    launch counts and those times."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from sfm_tpu_torch.io import Calibration
+    from sfm_tpu_torch.parallel import data_mesh
+    from sfm_tpu_torch.parallel.distributed import initialize_multihost
+
+    info = initialize_multihost(spec["addr"], spec["world"], spec["rank"],
+                                backend=spec["backend"])
+    mesh = data_mesh()
+    lead = torch.device("cuda", spec["rank"] % torch.cuda.device_count())
+    check(mesh.size == spec["world"] and mesh.local_devices == (lead,),
+          f"rank mesh {mesh}")
+    with np.load(spec["inp"]) as z:
+        images = z["images"]
+        calib = Calibration.from_numpy(z["K"], z["R"], z["t"],
+                                       [str(n) for n in z["names"]])
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.histc(torch.rand(8, device=mesh.lead))
+        probe = len(caught)
+        mesh_pass(images, calib, mesh)
+    torch.use_deterministic_algorithms(False)
+    nondet = sorted({str(w.message).split("\n")[0][:160] for w in caught[probe:]})
+    nondet.insert(0, f"probe (histc) warnings: {probe}")
+    out, walls, launches = mesh_pass(images, calib, mesh)
+    walls.update(collective_ms(mesh))
+    np.savez(spec["out"], **out, walls=json.dumps(walls),
+             launches=json.dumps(launches), info=json.dumps(info),
+             nondeterministic=json.dumps(nondet), mesh=repr(mesh))
+    return 0
+
+
+def rank_nccl_one(spec):
+    """A one-process NCCL group on the card: the mesh's moves at an MVS
+    round's shapes and a points-only BA over it, each equal to the
+    single-controller mesh of the same device."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from sfm_tpu_torch.ba import bundle_adjust
+    from sfm_tpu_torch.config import BaConfig
+    from sfm_tpu_torch.io import Calibration
+    from sfm_tpu_torch.parallel import DataMesh, data_mesh
+    from sfm_tpu_torch.parallel.distributed import GROUP_TIMEOUT
+    from sfm_tpu_torch.parallel.mesh import GroupMesh
+    from sfm_tpu_torch.sfm.pipeline import SparseReconstruction
+
+    dist.init_process_group("nccl", init_method=f"tcp://{spec['addr']}",
+                            world_size=1, rank=0, timeout=GROUP_TIMEOUT)
+    dev = torch.device("cuda", 0)
+    mesh, single = data_mesh(), DataMesh([dev])
+    check(isinstance(mesh, GroupMesh) and mesh.backend == "nccl"
+          and mesh.size == 1, f"one-rank NCCL mesh {mesh}")
+    g = torch.Generator(device=dev).manual_seed(0)
+    m, v = ROUND_M, 5
+    tensors = {
+        "bf16 descriptors": torch.randn((m, v, (2 * WID + 1) ** 2), generator=g,
+                                        device=dev).to(torch.bfloat16),
+        "bool in-bounds": torch.rand((m, v), generator=g, device=dev) < 0.5,
+        "f32 projections": torch.randn((m, v, 2), generator=g, device=dev),
+        "f64 sums": torch.randn((m, 3), generator=g, device=dev, dtype=torch.float64),
+        "int64 ids": torch.randint(0, 2**40, (m,), generator=g, device=dev),
+    }
+    moved = {}
+    for name, x in tensors.items():
+        for op in ("gather", "psum"):
+            got, want = ((mm.gather(mm.split(x), m) if op == "gather"
+                          else mm.psum(mm.split(x))) for mm in (mesh, single))
+            check(got.dtype == want.dtype and torch.equal(got, want),
+                  f"NCCL {op} of the {name} differs from the single-controller mesh")
+        moved[name] = x.numel() * x.element_size()
+    desc = tensors["bf16 descriptors"]
+    parts = mesh.split(desc)
+    gather_ms = cuda_ms(lambda: mesh.gather(parts, m))
+    with np.load(spec["inp"]) as z:
+        calib = Calibration.from_numpy(z["K"], z["R"], z["t"],
+                                       [str(n) for n in z["names"]])
+        recon = SparseReconstruction(calib=calib, world=z["world"],
+                                     track_offsets=z["track_offsets"],
+                                     track_obs=z["track_obs"])
+    results = []
+    for mm in (mesh, single):
+        r, info = bundle_adjust(sparse_copy(recon), BaConfig(dtype="float32"),
+                                mesh=mm, device="cuda")
+        results.append((r.world, info["iterations"], info["final_cost"]))
+    (w1, i1, c1), (w0, i0, c0) = results
+    check(i1 == i0 and c1 == c0 and np.array_equal(w1, w0),
+          "points-only BA over the NCCL group differs from the single-controller mesh")
+    log(json.dumps({"nccl_one_rank": {
+        "mesh": repr(mesh), "bytes_moved_each": moved,
+        "descriptor_gather_ms": gather_ms, "ba_iterations": i1,
+        "ba_final_cost": c1, "equal": True}}))
+    dist.destroy_process_group()
+    return 0
+
+
+def rank_nccl_two(spec):
+    """One of two NCCL processes on cuda:0: ``data_mesh()`` must refuse the
+    group with its ValueError (raised out of this process)."""
+    import torch.distributed as dist
+
+    from sfm_tpu_torch.parallel import data_mesh
+    from sfm_tpu_torch.parallel.distributed import GROUP_TIMEOUT
+
+    dist.init_process_group("nccl", init_method=f"tcp://{spec['addr']}",
+                            world_size=spec["world"], rank=spec["rank"],
+                            timeout=GROUP_TIMEOUT)
+    data_mesh()
+    log("data_mesh() accepted two NCCL processes on one GPU")
+    return 0
+
+
+RANK_MODES = {"stages_gloo": rank_stages, "stages_nccl": rank_stages,
+              "nccl_one": rank_nccl_one, "nccl_two": rank_nccl_two}
+
+
+def rank_main(spec_path) -> int:
+    with open(spec_path) as f:
+        spec = json.load(f)
+    sys.path.insert(0, HERE)
+    import torch  # noqa: F401
+
+    import sfm_tpu_torch  # noqa: F401
+
+    rc = RANK_MODES[spec["mode"]](spec)
+    check("jax" not in sys.modules, "a rank imported jax")
+    return rc
+
+
+def start_ranks(tmp, mode, n, inp, **extra):
+    """Start ``n`` rank processes of ``mode`` on a fresh port; each writes
+    its output to ``out{r}.npz`` and its log to ``log{r}.txt`` in ``tmp``.
+    Returns [(process, log path, out path)]."""
+    addr = f"127.0.0.1:{free_port()}"
+    ranks = []
+    for r in range(n):
+        spec = {"mode": mode, "addr": addr, "rank": r, "inp": inp, "world": n,
+                "out": os.path.join(tmp, f"{mode}_out{r}.npz"), **extra}
+        path = os.path.join(tmp, f"{mode}_spec{r}.json")
+        with open(path, "w") as f:
+            json.dump(spec, f)
+        log_path = os.path.join(tmp, f"{mode}_log{r}.txt")
+        with open(log_path, "w") as logf:
+            proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank", path],
+                stdout=logf, stderr=subprocess.STDOUT)
+        ranks.append((proc, log_path, spec["out"]))
+    return ranks
+
+
+def wait_ranks(ranks, what):
+    """Wait for every rank (killing all of them past RANK_TIMEOUT_S);
+    returns [(exit code, log text)]."""
+    deadline = time.perf_counter() + RANK_TIMEOUT_S
+    try:
+        for proc, _, _ in ranks:
+            proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        for proc, _, _ in ranks:
+            proc.kill()
+            proc.wait()
+        check(False, f"{what}: ranks still running after {RANK_TIMEOUT_S} s")
+    done = []
+    for proc, log_path, _ in ranks:
+        with open(log_path) as f:
+            done.append((proc.returncode, f.read()))
+    return done
+
+
+def write_ring(tmp, images, calib, sparse):
+    """The ring's images, calibration and a sparse result, as the ranks'
+    input file."""
+    import numpy as np
+
+    inp = os.path.join(tmp, "ring.npz")
+    np.savez(inp, images=images, K=calib.K, R=calib.R, t=calib.t,
+             names=np.asarray(calib.names), world=sparse.world,
+             track_offsets=sparse.track_offsets, track_obs=sparse.track_obs)
+    return inp
+
+
+def stages_across_processes(tmp, inp, images, calib, world, backend, smi):
+    """``mesh_pass`` in ``world`` processes of a ``backend`` group (one
+    shard each, on ``data_mesh()``'s GPU of the process), held to each
+    other bit for bit and to the single-controller mesh of the same
+    devices -- ``world`` virtual shards of cuda:0 on one GPU, else shard i
+    on cuda:i -- within phases 11-13's bounds, with the gates of the ring,
+    and K1 / K2 launched once per stage and sweep in each process.
+    Returns each rank's launch counts."""
+    import numpy as np
+    import torch
+
+    from sfm_tpu_torch.parallel import DataMesh
+
+    label = f"{world} {backend} processes"
+    t0 = time.perf_counter()
+    done = wait_ranks(start_ranks(tmp, f"stages_{backend}", world, inp,
+                                  backend=backend), label)
+    ranks_wall = time.perf_counter() - t0
+    for r, (rc, text) in enumerate(done):
+        check(rc == 0, f"{label}: rank {r} exited {rc}:\n{text[-4000:]}")
+    outs = []
+    for r in range(world):
+        with np.load(os.path.join(tmp, f"stages_{backend}_out{r}.npz")) as z:
+            outs.append({k: z[k] for k in z.files})
+    meta = [{k: json.loads(str(o.pop(k))) for k in
+             ("walls", "launches", "info", "nondeterministic")} for o in outs]
+    log(f"{label}: {[str(o.pop('mesh')) for o in outs]}; "
+        f"initialize_multihost {[m['info'] for m in meta]}")
+    log(f"{label}: warnings under deterministic algorithms (warm-up pass, "
+        f"rank 0): " + json.dumps(meta[0]["nondeterministic"]))
+    for r in range(1, world):
+        differ = sorted(k for k in outs[0] if not np.array_equal(outs[0][k], outs[r][k]))
+        check(set(outs[0]) == set(outs[r]) and not differ,
+              f"{label}: ranks 0 and {r} differ in {differ}")
+    log(f"{label}: the ranks' {len(outs[0])} outputs bit-identical")
+
+    n_gpu = torch.cuda.device_count()
+    devices = [torch.device("cuda", r % n_gpu) for r in range(world)]
+    mesh = DataMesh(devices)
+    mesh_pass(images, calib, mesh)  # warm
+    want, s_walls, s_launches = mesh_pass(images, calib, mesh)
+    s_walls.update(collective_ms(mesh))
+    got = outs[0]
+    bit_equal = {k: bool(np.array_equal(got[k], want[k])) for k in want}
+    log(f"{label} against the single-controller {mesh}, bit-equal by output: "
+        + json.dumps(bit_equal))
+    n_pts, n_pts_s = got["mvs/points"].shape[0], want["mvs/points"].shape[0]
+    rms_diff = abs(float(got["ba/rms"]) - float(want["ba/rms"]))
+    check(bit_equal["sfm/track_obs"], f"{label}: SfM track_obs differ")
+    check(int(got["ba/iterations"]) == int(want["ba/iterations"])
+          and rms_diff <= 1e-4, f"{label}: BA iterations or rms (1e-4 px)")
+    check(int(got["joint/iterations"]) == int(want["joint/iterations"])
+          and str(got["joint/solver"]) == "dense_schur", f"{label}: joint BA")
+    check(int(got["mvs/num_seeds"]) == int(want["mvs/num_seeds"])
+          and abs(n_pts - n_pts_s) <= 0.01 * n_pts_s,
+          f"{label}: MVS seeds equal and points within 1 %")
+    n_tracks = int(got["sfm/track_offsets"].shape[0] - 1)
+    med, p95 = sphere_bounds(got["sfm/world"])
+    check(n_tracks > 500 and float(got["sfm/pair_reproj"]) < 0.3
+          and med < 0.01 and p95 < 0.05, f"{label}: SfM gates")
+    check(float(got["ba/rms"]) < 0.3, f"{label}: BA rms gate")
+    dmed, dp90, outward = dense_bounds(got["mvs/points"], got["mvs/normals"])
+    check(n_pts > 10000 and dmed < 0.02 and dp90 < 0.06 and outward > 0.9,
+          f"{label}: MVS gates")
+    rounds = int(got["mvs/rounds"])
+    for r, m in enumerate(meta):
+        lc = m["launches"]
+        check(lc["sfm"]["harris_response"] == 1
+              and lc["sfm"]["sample_normalized_patches"] == 1,
+              f"{label}: rank {r}: SfM launched K1 / K2 {lc['sfm']}, not once each")
+        check(lc["mvs"]["sample_normalized_patches"] == 1 + rounds
+              and lc["mvs"]["sample_normalized_patches_sharded"] == 1 + rounds
+              and lc["mvs"]["harris_response"] == 0,
+              f"{label}: rank {r}: MVS launches {lc['mvs']}, not K2 once per "
+              f"sweep (seeding + {rounds} rounds)")
+        check(lc["ba"]["harris_response"] == lc["ba"]["sample_normalized_patches"]
+              == lc["joint_ba"]["sample_normalized_patches"] == 0,
+              f"{label}: rank {r}: BA launched an image kernel")
+    log(f"{label} outputs: {n_tracks} tracks, BA {int(got['ba/iterations'])} "
+        f"iterations rms {float(got['ba/rms']):.6f} px (single-controller "
+        f"{float(want['ba/rms']):.6f}), joint BA {int(got['joint/iterations'])} "
+        f"iterations rms {float(got['joint/rms']):.6f}, MVS "
+        f"{int(got['mvs/num_seeds'])} seeds -> {n_pts} points in {rounds} "
+        f"rounds (single-controller {n_pts_s})")
+    walls = {f"rank {r}": m["walls"] for r, m in enumerate(meta)}
+    walls[f"single controller, {mesh}"] = s_walls
+    log(f"{label}: stage walls (s) and one gather / psum (ms), on {smi}: "
+        + json.dumps(walls))
+    log(f"{label}: launches per rank: " + json.dumps(
+        {f"rank {r}": m["launches"] for r, m in enumerate(meta)})
+        + "; single controller: " + json.dumps(s_launches))
+    log(f"{label}: run wall {ranks_wall:.2f} s")
+    return [m["launches"] for m in meta]
+
+
+def nccl_processes(tmp, inp, images, calib, smi):
+    """One process per GPU over NCCL through ``stages_across_processes``
+    (two or more GPUs; logs the skip below that)."""
+    import torch
+
+    n_gpu = torch.cuda.device_count()
+    if n_gpu < 2:
+        log("SfM, BA and MVS in one NCCL process per GPU: skipped (one GPU)")
+        return None
+    return stages_across_processes(tmp, inp, images, calib, n_gpu, "nccl", smi)
+
+
+def run_process_mesh(images, calib, sparse4, smi):
+    """Phase 23: SfM, points-only and joint BA and MVS at the CLI defaults
+    in RANKS gloo processes on cuda:0 (one local shard each), held to each
+    other bit for bit and to the single-controller mesh of RANKS virtual
+    shards; a one-process NCCL group; two NCCL processes on one GPU
+    refused; and, with two or more GPUs, one NCCL process per GPU against
+    the single-controller mesh over them.  Returns the gloo ranks' launch
+    counts."""
+    t_phase = time.perf_counter()
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    inp = write_ring(tmp, images, calib, sparse4)
+    per_rank = stages_across_processes(tmp, inp, images, calib, RANKS, "gloo", smi)
+
+    t0 = time.perf_counter()
+    ((rc, text),) = wait_ranks(start_ranks(tmp, "nccl_one", 1, inp), "NCCL one rank")
+    check(rc == 0, f"one-rank NCCL run exited {rc}:\n{text[-4000:]}")
+    log(next(ln for ln in text.splitlines() if ln.startswith('{"nccl_one_rank"'))
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    refused = wait_ranks(start_ranks(tmp, "nccl_two", RANKS, inp), "NCCL refusal")
+    for r, (rc, text) in enumerate(refused):
+        check(rc != 0 and "ValueError: NCCL group places two processes on one GPU"
+              in text, f"NCCL rank {r} on cuda:0 was not refused by data_mesh "
+              f"(exit {rc}):\n{text[-4000:]}")
+    log(f"two NCCL processes on cuda:0: both refused with data_mesh's "
+        f"ValueError ({time.perf_counter() - t0:.1f} s)")
+    nccl_processes(tmp, inp, images, calib, smi)
+    tmp_dir.cleanup()
+    log(f"phase 23 wall {time.perf_counter() - t_phase:.2f} s")
+    return per_rank
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -1949,6 +2406,9 @@ def main() -> int:
     run_quality_parity()
     log(f"phase 22 (ba_solver_parity) wall {time.perf_counter() - t0:.2f} s")
 
+    # --- 23. SfM, BA and MVS in two processes; NCCL -------------------------
+    per_rank = run_process_mesh(images, calib, sparse4, smi)
+
     log(f"stage walls at {SHARDS} virtual shards on {smi}: " + json.dumps({
         "sfm_s": sh["sfm_s"], "ba_s": sh["ba_s"], "mvs_s": sh["mvs_s"],
         "sfm_unsharded_s": wall, "ba_unsharded_s": ba_wall,
@@ -1968,6 +2428,7 @@ def main() -> int:
          "replaces": "sfm_tpu/ops/harris.py:79",
          "launches": launches["harris_response"],
          "launches_allpairs": allpairs["launches"]["harris_response"],
+         "launches_per_rank_sfm": [lc["sfm"]["harris_response"] for lc in per_rank],
          "max_abs_err": k1["max_abs_err"], "ms": t["k1"], "plain_ms": t["k1_plain"],
          # f32 in, f32 out; ~55 operations per pixel (two Sobels, three
          # products, three 3x3 box sums, det - k trace^2).
@@ -1982,6 +2443,10 @@ def main() -> int:
          "launches": launches["sample_normalized_patches"],
          "launches_allpairs": allpairs["launches"]["sample_normalized_patches"],
          "launches_allpairs_mvs": allpairs["mvs"]["launches"]["sample_normalized_patches"],
+         "launches_per_rank_sfm": [lc["sfm"]["sample_normalized_patches"]
+                                   for lc in per_rank],
+         "launches_per_rank_mvs": [lc["mvs"]["sample_normalized_patches"]
+                                   for lc in per_rank],
          "max_abs_err": max(k2.values()), "ms": t["k2_int"],
          "plain_ms": t["k2_int_plain"], **gather_bound(gray_bf16.numel(), img_i.numel()),
          "library_ms": None, "kernel_only_ms": kernel_only["k2_int"],
@@ -2005,6 +2470,8 @@ def main() -> int:
          "replaces": "sfm_tpu/ops/gather.py:264",
          "shards": SHARDS,
          "launches": sh["mvs_launches"]["sample_normalized_patches_sharded"],
+         "launches_per_rank_mvs": [lc["mvs"]["sample_normalized_patches_sharded"]
+                                   for lc in per_rank],
          "max_abs_err": k2s["max_abs_err"],
          "max_abs_err_plain": k2s["max_abs_err_plain"],
          "ms": k2s["ms"], "single_call_ms": k2s["single_call_ms"],
@@ -2033,4 +2500,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--rank":
+        sys.exit(rank_main(sys.argv[2]))
     sys.exit(main())

@@ -16,15 +16,17 @@ easy to find:
 - ``sfm_tpu_torch.mvs``       — seeding, photo-consistency, expansion rounds,
   the outlier filter
 - ``sfm_tpu_torch.parallel``  — the device mesh (one process driving several
-  devices) and process-group set-up
+  devices, or a mesh across the processes of a ``torch.distributed``
+  group) and process-group set-up
 - ``sfm_tpu_torch.utils``     — metrics, timing, checkpoints, synthetic
   scenes, builds, figures
 
 Every stage and option of ``sfm_tpu``'s CLI is ported, single-device and
 over a mesh: sequential and all-pairs SfM, points-only and joint BA, MVS
 with the outlier filter, checkpoints in the JAX package's formats, and the
-``--plot`` / ``--debug`` figures and ``--profile_dir`` trace.  A mesh across
-processes is not.  This package never imports jax.
+``--plot`` / ``--debug`` figures and ``--profile_dir`` trace, and the mesh
+across processes (``parallel.distributed.initialize_multihost``, then
+``data_mesh()``).  This package never imports jax.
 """
 
 __version__ = "0.1.0"

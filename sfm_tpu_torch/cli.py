@@ -140,15 +140,24 @@ def run_mesh(config):
     """The mesh the stages run over: None unless ``mesh_shape`` > 1 (as
     ``sfm_tpu/cli.py``), else up to ``mesh_shape`` devices of the run's
     device kind -- for CUDA the visible GPUs from ``--device``'s index on
-    (``cuda`` starts at 0), for the CPU its one device."""
-    n = config.runtime.mesh_shape
-    if not n or n <= 1:
-        return None
+    (``cuda`` starts at 0), for the CPU its one device.
+
+    In a process of a ``torch.distributed`` group (``main`` called after
+    ``parallel.distributed.initialize_multihost``) the mesh always spans
+    the group, one shard a process (on CUDA ``data_mesh()``'s GPU of the
+    process); a ``mesh_shape`` > 1 below the group's size raises."""
     import torch
+    import torch.distributed as dist
 
     from sfm_tpu_torch.parallel import data_mesh
 
+    n = config.runtime.mesh_shape
     device = torch.device(config.runtime.device)
+    if dist.is_initialized():
+        return data_mesh(num_devices=n if n and n > 1 else None,
+                         devices=None if device.type == "cuda" else [device])
+    if not n or n <= 1:
+        return None
     if device.type == "cuda":
         devices = [torch.device("cuda", i) for i in
                    range(device.index or 0, torch.cuda.device_count())]
@@ -212,12 +221,18 @@ def _main(argv=None) -> int:
         require_matplotlib()
     config = config_from_args(args)
     mesh = run_mesh(config)
-    os.makedirs(args.out_dir, exist_ok=True)
-    with profiled(args.profile_dir, config.runtime.device):
-        return _run_stages(args, stages, config, mesh)
+    # Over a group mesh every process runs the stages; process 0 writes.
+    lead = mesh is None or mesh.process_index == 0
+    if lead:
+        os.makedirs(args.out_dir, exist_ok=True)
+    with profiled(args.profile_dir if lead else None, config.runtime.device):
+        rc = _run_stages(args, stages, config, mesh, lead)
+    if mesh is not None:
+        mesh.barrier()  # nothing reads process 0's files before they are whole
+    return rc
 
 
-def _run_stages(args, stages, config, mesh) -> int:
+def _run_stages(args, stages, config, mesh, lead) -> int:
     device = config.runtime.device
 
     from sfm_tpu_torch.io import load_images, read_pars
@@ -246,17 +261,18 @@ def _run_stages(args, stages, config, mesh) -> int:
 
             with timers.stage("sfm"):
                 recon = structure_from_motion(images, calib, config, mesh=mesh)
-            if args.checkpoint_dir:
+            if args.checkpoint_dir and lead:
                 ckpt.save_sparse(ckpt.stage_path(args.checkpoint_dir, "sfm"),
                                  recon)
         mean_reproj = recon.mean_reprojection_error()
         print(f"sparse: {recon.num_tracks} tracks, "
               f"{recon.num_observations} observations, "
               f"mean reproj {mean_reproj:.3f}px")
-        recon.export_ply(os.path.join(args.out_dir, "sparse_points.ply"))
+        if lead:
+            recon.export_ply(os.path.join(args.out_dir, "sparse_points.ply"))
         summary["sparse_tracks"] = recon.num_tracks
         summary["sparse_mean_reproj_px"] = mean_reproj
-        if args.debug and recon.debug_pairs is not None:
+        if lead and args.debug and recon.debug_pairs is not None:
             dp = recon.debug_pairs
             for pi in range(min(3, len(dp["pairs"]))):
                 a, b = dp["pairs"][pi]
@@ -268,7 +284,7 @@ def _run_stages(args, stages, config, mesh) -> int:
                         args.out_dir, f"debug_epipolar_{a}_{b}.png"
                     ),
                 )
-        if args.plot:
+        if lead and args.plot:
             viz.scatter3d(recon.world, scale=args.scale,
                           title="without bundle adjustment",
                           path=os.path.join(args.out_dir, "sparse_before_ba.png"))
@@ -288,12 +304,13 @@ def _run_stages(args, stages, config, mesh) -> int:
         ba_rms = recon.rms_reprojection_error()
         print(f"ba: cost {info['final_cost']:.4g} after {info['iterations']} "
               f"iterations; rms reproj {ba_rms:.3f}px")
-        if args.checkpoint_dir:
+        if args.checkpoint_dir and lead:
             ckpt.save_sparse(ckpt.stage_path(args.checkpoint_dir, "ba"), recon)
-        recon.export_ply(os.path.join(args.out_dir, "sparse_points_ba.ply"))
+        if lead:
+            recon.export_ply(os.path.join(args.out_dir, "sparse_points_ba.ply"))
         summary["ba_final_cost"] = info["final_cost"]
         summary["ba_rms_reproj_px"] = ba_rms
-        if args.plot:
+        if lead and args.plot:
             viz.scatter3d(recon.world, scale=args.scale,
                           title="with bundle adjustment",
                           path=os.path.join(args.out_dir, "sparse_after_ba.png"))
@@ -320,14 +337,15 @@ def _run_stages(args, stages, config, mesh) -> int:
                   f"{dense.metrics.values['mvs_resumed_at_round']}")
         print(f"mvs: {dense.num_seeds} seeds -> {dense.num_points} points "
               f"in {dense.metrics.values['mvs_rounds']} rounds")
-        export_ply(
-            os.path.join(args.out_dir, "initial_patches.ply"),
-            dense.points[: dense.num_seeds], dense.colors[: dense.num_seeds],
-        )
-        dense.export_ply(os.path.join(args.out_dir, "all_patches.ply"))
+        if lead:
+            export_ply(
+                os.path.join(args.out_dir, "initial_patches.ply"),
+                dense.points[: dense.num_seeds], dense.colors[: dense.num_seeds],
+            )
+            dense.export_ply(os.path.join(args.out_dir, "all_patches.ply"))
         summary["mvs_seeds"] = dense.num_seeds
         summary["mvs_points"] = dense.num_points
-        if args.plot:
+        if lead and args.plot:
             viz.scatter3d(dense.points, dense.colors, scale=args.scale,
                           title="reconstruct_results",
                           path=os.path.join(args.out_dir, "dense.png"))

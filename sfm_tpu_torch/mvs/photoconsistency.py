@@ -153,7 +153,7 @@ def photo_consistency(
     if torch.is_tensor(min_ncc) and min_ncc.dim() == 1:
         thrs = [thr[:, None] for thr in mesh.split(min_ncc)]
     else:
-        thrs = [min_ncc] * mesh.size
+        thrs = [min_ncc] * len(mesh.local_devices)
     outs = [
         _score(d, b, s, ref, thr, wid)
         for (d, b), s, ref, thr in zip(swept, samples, refs, thrs)

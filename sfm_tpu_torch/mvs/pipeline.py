@@ -296,7 +296,8 @@ def dense_reconstruction(
     ``checkpoint_every`` rounds and resumes from it on the next call; the
     state tensors go to numpy on save and back to the stage's device on
     load.  The stage is deterministic, so the resumed cloud is the
-    uninterrupted run's, bit for bit.
+    uninterrupted run's, bit for bit.  Over a group mesh only process 0
+    writes (and clears) the state file, and every process reads it.
     """
     timers = StageTimer()
     metrics = Metrics()
@@ -488,13 +489,19 @@ def dense_reconstruction(
                 all_ref.append(_payload_refs(ph[:cap][acc_valid], n))
                 total += n_acc
             if checkpoint_dir and rounds - last_ckpt_rounds >= checkpoint_every:
-                save_state()
+                # Every process of a group mesh holds this state: process 0
+                # writes it, and the others wait until the file is whole.
+                if mesh.process_index == 0:
+                    save_state()
+                mesh.barrier()
                 last_ckpt_rounds = rounds
             if stop:
                 break
     if checkpoint_dir:
         # Completed: the mid-run state is superseded by the stage output.
-        ckpt.clear_mvs_state(checkpoint_dir)
+        if mesh.process_index == 0:
+            ckpt.clear_mvs_state(checkpoint_dir)
+        mesh.barrier()
     metrics.record("mvs_rounds", rounds)
     metrics.record("mvs_num_points", total)
     if funnel[0]:

@@ -294,7 +294,7 @@ def structure_from_motion(
             for k in ("corners", "valid", "descriptors")
         ))
         if device.type == "cuda":
-            for d in dict.fromkeys(mesh.devices):
+            for d in dict.fromkeys(mesh.local_devices):
                 torch.cuda.synchronize(d)  # attribute feature time here
 
     with timers.stage("pair_geometry"):
