@@ -55,7 +55,12 @@ launches counted; a one-process NCCL group moving an MVS round's tensors
 and running BA, equal to the single-controller mesh; two NCCL processes
 on one GPU refused by ``data_mesh()``; and, with two or more GPUs
 (e.g. one host with four H100s), one NCCL process per GPU held to the
-single-controller mesh over them.  Each of those four
+single-controller mesh over them.  Then the benchmark harness (phase 24):
+``bench_torch.py`` in a process of its own on the ring written in
+dinoRing's layout, once with three warm passes and once with joint bundle
+adjustment; its tracks, rms and dense points held to phases 4 and 8 and
+to an in-process MVS at its scale 10, its K1 / K2 launches and
+kernel-only times read from its ``kernels`` block.  Each of those five
 phases prints its wall, and the script its whole wall.  It prints as its
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises and
 the exit code is nonzero.  Without CUDA, or without Pillow (the CLI
@@ -1967,6 +1972,109 @@ def run_process_mesh(images, calib, sparse4, smi):
     return per_rank
 
 
+# --- phase 24: the benchmark harness ---------------------------------------
+
+BENCH_TIMEOUT_S = 300
+
+
+def bench_line(ds, *flags):
+    """``bench_torch.py --data ds *flags`` in a process of its own, as a
+    user runs it; returns its last line, parsed."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(HERE, "bench_torch.py"), "--data", ds, *flags],
+        cwd=HERE, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    check(proc.returncode == 0, f"bench_torch.py {' '.join(flags)} exited "
+          f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    line = proc.stdout.strip().splitlines()[-1]
+    log(f"bench_torch.py {' '.join(flags)} ({time.perf_counter() - t0:.1f} s "
+        f"with its start): {line}")
+    return json.loads(line)
+
+
+def run_bench(images, ba_recon, tracks4, rms8, seeds9, smi):
+    """Phase 24: ``bench_torch.py`` on the ring written in dinoRing's
+    layout, once with ``--warm 3`` and once with ``--refine_cameras --warm
+    1 --no-kernels``.  Its tracks are phase 4's, its rms phase 8's, its
+    dense points those of an in-process MVS at the bench's scale on phase
+    8's result, K1 and K2 launch as that pass does, and joint BA does not
+    end above points-only.  That MVS seeds as phase 9 does (seeding does
+    not read the scale) and its cloud lies on the sphere; its expansion
+    accepts a patch only within 0.05 / scale of its parent, 0.005 at scale
+    10, about the spacing of neighbouring cells on this ring, so it grows
+    the seeds by far less than phase 9's scale 1 (dinoRing's scene is
+    smaller).  Returns the first line."""
+    import torch
+
+    from sfm_tpu_torch.config import MvsConfig
+    from sfm_tpu_torch.mvs import dense_reconstruction
+    from sfm_tpu_torch.ops.gather import sample_normalized_patches
+    from sfm_tpu_torch.ops.harris import harris_response
+    from sfm_tpu_torch.utils import synth
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = os.path.join(tmp, "sphere_ring")  # not dinoRing: no vs_baseline
+        synth.write_middlebury_dataset(
+            ds, centers=synth.ring_rig(N_FRAMES), w=WIDTH, h=HEIGHT,
+            prefix="dinoR", image_type="png", spheres=(((0.0, 0.0, 0.0), 1.0),),
+            seed=0)
+        r = bench_line(ds, "--warm", "3")
+        j = bench_line(ds, "--refine_cameras", "--warm", "1", "--no-kernels")
+
+    harris_response.launches = sample_normalized_patches.launches = 0
+    dense = dense_reconstruction(images, ba_recon.calib, ba_recon, MvsConfig(),
+                                 scale=10.0, device="cuda")
+    torch.cuda.synchronize()
+    k2_mvs = sample_normalized_patches.launches
+    check(harris_response.launches == 0, "MVS launched K1")
+    med, p90, outward = dense_bounds(dense.points, dense.normals)
+    log(f"MVS at scale 10 in this process: {dense.num_seeds} seeds -> "
+        f"{dense.num_points} points in {dense.metrics.values['mvs_rounds']} rounds, "
+        f"{k2_mvs} K2 launches; |c|-1 median {med:.2e} p90 {p90:.2e}; n.c > 0 "
+        f"share {outward:.4f}; metrics " + dense.metrics.to_json())
+    check(dense.num_seeds == seeds9 and dense.num_points >= seeds9,
+          f"scale-10 MVS: {dense.num_seeds} seeds (phase 9: {seeds9}), "
+          f"{dense.num_points} points")
+    check(med < 0.02 and p90 < 0.06 and outward > 0.9,
+          f"scale-10 dense cloud on the sphere: median {med} p90 {p90} "
+          f"outward {outward}")
+
+    check(r["metric"] == f"sphere_ring {N_FRAMES}-frame SfM+BA+MVS(100k budget) on cuda"
+          and r["vs_baseline"] is None, f"bench metric {r['metric']!r}")
+    check(len(r["wall_samples_s"]) == 3 and r["wall_s"] == min(r["wall_samples_s"]),
+          "bench warm samples")
+    check(r["tracks"] == tracks4, f"bench tracks {r['tracks']} != phase 4's {tracks4}")
+    check(abs(r["rms_reproj_px"] - rms8) <= 1e-6,
+          f"bench rms {r['rms_reproj_px']} px vs phase 8's {rms8}")
+    check(r["dense_points"] == dense.num_points,
+          f"bench dense points {r['dense_points']} != {dense.num_points} in process")
+    kern = r["kernels"]
+    k1, k2 = kern["harris_response"], kern["sample_normalized_patches"]
+    check(k1["launches"] == 1, f"bench K1 launches {k1['launches']} != 1")
+    check(k2["launches"] == 1 + k2_mvs,
+          f"bench K2 launches {k2['launches']} != 1 + {k2_mvs} (SfM + MVS)")
+    for name, k in (("K1", k1), ("K2", k2)):
+        check(k["kernel_only_ms"] and k["kernel_only_ms"] > 0 and k["bound_ms"] > 0,
+              f"bench {name}: kernel-only ms and bound")
+    check(j["refine_cameras"] is True and j["tracks"] == tracks4
+          and "kernels" not in j, "bench --refine_cameras line")
+    check(j["rms_reproj_refined_px"] <= r["rms_reproj_refined_px"],
+          f"joint BA rms {j['rms_reproj_refined_px']} above points-only "
+          f"{r['rms_reproj_refined_px']}")
+    log(f"bench on {smi}: " + json.dumps({
+        "cold_s": r["cold_s"], "wall_s": r["wall_s"],
+        "wall_median_s": r["wall_median_s"],
+        "cold_attribution": r["cold_attribution"], "timers": r["timers"],
+        "cold_timers": r["cold_timers"],
+        "joint_wall_s": j["wall_s"],
+        "joint_rms_refined_px": j["rms_reproj_refined_px"],
+        "dense_points_scale10": dense.num_points,
+        "mvs_rounds_scale10": dense.metrics.values["mvs_rounds"]}))
+    log(f"phase 24 wall {time.perf_counter() - t_phase:.2f} s")
+    return r
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -2409,6 +2517,10 @@ def main() -> int:
     # --- 23. SfM, BA and MVS in two processes; NCCL -------------------------
     per_rank = run_process_mesh(images, calib, sparse4, smi)
 
+    # --- 24. bench_torch.py on the ring in dinoRing's layout -----------------
+    bench = run_bench(images, recon, sparse4.num_tracks, rms_after,
+                      dense.num_seeds, smi)
+
     log(f"stage walls at {SHARDS} virtual shards on {smi}: " + json.dumps({
         "sfm_s": sh["sfm_s"], "ba_s": sh["ba_s"], "mvs_s": sh["mvs_s"],
         "sfm_unsharded_s": wall, "ba_unsharded_s": ba_wall,
@@ -2429,6 +2541,7 @@ def main() -> int:
          "launches": launches["harris_response"],
          "launches_allpairs": allpairs["launches"]["harris_response"],
          "launches_per_rank_sfm": [lc["sfm"]["harris_response"] for lc in per_rank],
+         "launches_bench": bench["kernels"]["harris_response"]["launches"],
          "max_abs_err": k1["max_abs_err"], "ms": t["k1"], "plain_ms": t["k1_plain"],
          # f32 in, f32 out; ~55 operations per pixel (two Sobels, three
          # products, three 3x3 box sums, det - k trace^2).
@@ -2447,6 +2560,7 @@ def main() -> int:
                                    for lc in per_rank],
          "launches_per_rank_mvs": [lc["mvs"]["sample_normalized_patches"]
                                    for lc in per_rank],
+         "launches_bench": bench["kernels"]["sample_normalized_patches"]["launches"],
          "max_abs_err": max(k2.values()), "ms": t["k2_int"],
          "plain_ms": t["k2_int_plain"], **gather_bound(gray_bf16.numel(), img_i.numel()),
          "library_ms": None, "kernel_only_ms": kernel_only["k2_int"],
