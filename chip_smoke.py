@@ -60,7 +60,18 @@ single-controller mesh over them.  Then the benchmark harness (phase 24):
 dinoRing's layout, once with three warm passes and once with joint bundle
 adjustment; its tracks, rms and dense points held to phases 4 and 8 and
 to an in-process MVS at its scale 10, its K1 / K2 launches and
-kernel-only times read from its ``kernels`` block.  Each of those five
+kernel-only times read from its ``kernels`` block, and once more with
+``--no-defer-fetch --no-seed-overlap`` (the same outputs).  Then the MVS
+schedule (phase 25): one expansion round, a chunk of two and a backlog
+split and merge under ``torch.cuda.set_sync_debug_mode("error")`` (no
+host read in a round); at scales 1 and 10 the default (pipelined) loop
+against the serial one (``overlap_seed_fetch`` off, a checkpoint every
+round) and ``rounds_per_call`` 2 and 4 against the same chunk serial, the
+clouds bit-identical, K2's launches those of the dispatch-ahead rule
+(``enqueued_rounds``; every exact K2 launch check of phases 9, 12, 18, 23
+and 24 is derived from it, the wasted rounds printed beside it), the
+walls and the device busy share of each; phase 20 runs the pipelined
+against the serial loop once on the stress ring.  Each of those six
 phases prints its wall, and the script its whole wall.  It prints as its
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises and
 the exit code is nonzero.  Without CUDA, or without Pillow (the CLI
@@ -424,21 +435,19 @@ K3_KERNELS = {"tma": "gather_tile_tma_kernel",
               "rows": "gather_tile_rows_kernel"}
 
 
-def device_kernel_names(fn):
+def device_kernel_names(fn, want=()):
     """Names of the device kernels one call of ``fn`` launches, under
-    torch.profiler (a session opened with ten marker fills, as
-    ``kernel_only_ms``'s)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    torch.profiler (``measure.profiled``).  With ``want``, kernel names
+    one of which the call launches, a session that saw none of them lost
+    its events and is taken again."""
+    from sfm_tpu_torch.tools.measure import kernel_named, profiled
 
-    marker = torch.empty(1024, device="cuda")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            marker.fill_(0.0)
-        fn()
-        torch.cuda.synchronize()
-    return {e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+    def accept(_, kernels):
+        return not want or any(kernel_named(e.name, base)
+                               for e in kernels for base in want)
+
+    _, kernels, _ = profiled(fn, accept, log=log, what="device kernel names")
+    return {e.name for e in kernels}
 
 
 def check_k3_routes(gray_bf16, img_f, ctr_f):
@@ -457,14 +466,11 @@ def check_k3_routes(gray_bf16, img_f, ctr_f):
     for name, g, img, ctr in k3_cases(gray_bf16, img_f, ctr_f):
         want = "rows" if name == "odd width" else "tma"
         check(tile_route(g) == want, f"K3 {name}: tile_route {tile_route(g)}")
-        seen = set()
-        for _ in range(3):  # the profiler may lose a session's kernels
-            names = device_kernel_names(
-                lambda: sample_normalized_patches_tiled(g, img, ctr, WID))
-            seen = {route for route, base in K3_KERNELS.items()
-                    if any(kernel_named(n, base) for n in names)}
-            if seen:
-                break
+        names = device_kernel_names(
+            lambda: sample_normalized_patches_tiled(g, img, ctr, WID),
+            want=K3_KERNELS.values())
+        seen = {route for route, base in K3_KERNELS.items()
+                if any(kernel_named(n, base) for n in names)}
         check(seen == {want}, f"K3 {name}: device kernels {sorted(seen)}, "
               f"want {K3_KERNELS[want]}")
         routes[name] = want
@@ -497,14 +503,14 @@ def cuda_ms(fn, reps=20, batch=10):
 def host_and_device(fn, calls=50):
     """Where a call's time goes, per call: ``host_us`` to enqueue it (the
     host loop alone, nothing waited for), ``with_device_us`` to the sync
-    after the loop, and under torch.profiler the device kernels it launches
-    and their summed device ms.  The profiler may lose the first events of
-    a session, so the session opens with ten fills and a sync; every device
-    kernel that starts after the counted window opens is counted, whatever
-    its name.  It may also lose a kernel inside the window: a session whose
-    count is not a whole number a call is taken again."""
+    after the loop, and under torch.profiler (``measure.profiled``) the
+    device kernels it launches, whatever their names, and their summed
+    device ms.  The calls are identical on identical inputs and so launch
+    the same kernels: a session whose count is not a whole number a call
+    lost events and is taken again."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from sfm_tpu_torch.tools.measure import profiled
 
     for _ in range(3):
         fn()
@@ -515,44 +521,14 @@ def host_and_device(fn, calls=50):
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    marker = torch.empty(1024, device="cuda")
-    sessions = 5
-    for attempt in range(sessions):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                marker.fill_(0.0)
-            torch.cuda.synchronize()
-            time.sleep(0.002)  # far more than the host and device clocks differ by
-            with record_function("counted_window"):
-                time.sleep(0.002)
-                for _ in range(calls):
-                    fn()
-                torch.cuda.synchronize()
-        events = prof.events()
-        opened = [e.time_range.start for e in events if e.name == "counted_window"
-                  and e.device_type == torch.autograd.DeviceType.CPU]
-        check(len(opened) >= 1, "the counted window is not in the profile")
-        # (the profiler lists the window a second time, as a device-side span)
-        device = [e for e in events
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and e.name != "counted_window"]
-        kern = [e for e in device if e.time_range.start >= min(opened)]
-        if len(kern) == len(device):
-            # Every fill was lost, so the window's own first kernels may
-            # have been too: profile the window again.
-            log(f"profiler session {attempt + 1}: no marker fill seen; again")
-            continue
-        if len(kern) % calls:
-            # The calls are identical on identical inputs and so launch the
-            # same kernels: a count that is not a whole number a call means
-            # the profiler lost events, so profile the window again.
-            log(f"profiler session {attempt + 1}: {len(kern)} device kernels "
-                f"in {calls} identical calls; events lost, again")
-            continue
-        break
-    check(len(kern) < len(device) and len(kern) % calls == 0,
-          f"no whole count of device kernels in {sessions} profiler sessions "
-          f"(last: {len(kern)} kernels in {calls} calls)")
+
+    def body():
+        for _ in range(calls):
+            fn()
+
+    _, kern, _ = profiled(
+        body, lambda _, kernels: len(kernels) > 0 and len(kernels) % calls == 0,
+        log=log, what=f"{calls} identical calls")
     return {"host_us": (t1 - t0) / calls * 1e6,
             "with_device_us": (t2 - t0) / calls * 1e6,
             "launches": len(kern) / calls,
@@ -820,6 +796,37 @@ def run_mvs(images, recon, kernels, mesh=None):
     return dense, time.perf_counter() - t0
 
 
+def enqueued_rounds(rounds, total, seeds, cfg, serial=False, backlog_left=0):
+    """(rounds enqueued, rounds enqueued and never read) of one fresh MVS
+    stage that read ``rounds`` rounds and accepted ``total`` patches from
+    ``seeds`` seeds at ``cfg``, by the rule of the host loop
+    (``mvs/pipeline.py``, the JAX package's): every chunk of
+    ``rounds_per_call`` rounds it read from, whole, plus the next chunk
+    where the loop enqueued it ahead of the read that ended the stage.
+    That happens only where the stage stopped on a dry round with no
+    backlog (not on a budget) and, at that read, no checkpoint was due
+    (``serial``), rounds + chunk < max_rounds and total + chunk * cap <
+    max_patches, with total then between the seeds and the final total.
+    Each enqueued round is one K2 sweep.  Raises where those bounds cannot
+    decide it."""
+    k = max(cfg.rounds_per_call, 1)
+    chunks = -(-rounds // k)
+    enqueued = chunks * k
+    ended_on_budget = rounds >= cfg.max_rounds or total >= cfg.max_patches
+    if serial or ended_on_budget or backlog_left:
+        return enqueued, enqueued - rounds
+    before = (chunks - 1) * k
+    room = cfg.max_patches - k * cfg.round_capacity
+    if before + k >= cfg.max_rounds or seeds >= room:
+        ahead = 0
+    elif total < room:
+        ahead = k
+    else:
+        raise RuntimeError(f"dispatch-ahead undecidable: {seeds} <= total "
+                           f"before the last read <= {total}, limit {room}")
+    return enqueued + ahead, enqueued + ahead - rounds
+
+
 def dense_bounds(points, normals):
     import numpy as np
 
@@ -830,28 +837,33 @@ def dense_bounds(points, normals):
 
 def profile_mvs(images, recon, smi):
     """One MVS run under torch.profiler: K2's device time and every
-    kernel's, summed, and a table by device and by host time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    kernel's, summed, and a table by device and by host time.  A session
+    that did not see one K2 kernel for each of the run's K2 launches lost
+    events and is taken again (``measure.profiled``)."""
+    from sfm_tpu_torch.ops.gather import sample_normalized_patches
+    from sfm_tpu_torch.tools.measure import kernel_named, profiled
 
-    from sfm_tpu_torch.tools.measure import kernel_named
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def body():
+        sample_normalized_patches.launches = 0
         dense, wall = run_mvs(images, recon, kernels=None)
+        return dense, wall, sample_normalized_patches.launches
 
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    def k2(kernels):
+        return [e for e in kernels if kernel_named(e.name, "gather_kernel")]
+
+    (dense, wall, launches), kernels, prof = profiled(
+        body, lambda r, kernels: len(k2(kernels)) == r[2] > 0, log=log,
+        what="MVS under the profiler")
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    k2_ms = sum(e.time_range.elapsed_us() for e in kernels
-                if kernel_named(e.name, "gather_kernel")) / 1e3
-    check(k2_ms > 0, "the profiler saw no K2 kernel in the MVS run")
+    k2_ms = sum(e.time_range.elapsed_us() for e in k2(kernels)) / 1e3
     ka = prof.key_averages()
     log(f"one MVS stage under the profiler: wall {wall:.4f} s, "
         f"{dense.num_points} points, on {smi}")
     log(ka.table(sort_by="self_cuda_time_total", row_limit=25))
     log(ka.table(sort_by="self_cpu_time_total", row_limit=15))
     log(f"MVS profiled: wall {wall:.4f} s, device kernels busy {busy_ms:.2f} ms "
-        f"({100 * busy_ms / 1e3 / wall:.1f} % of the wall), K2 {k2_ms:.3f} ms")
+        f"({100 * busy_ms / 1e3 / wall:.1f} % of the wall), K2 {k2_ms:.3f} ms "
+        f"in {launches} kernels")
     return {"wall_s": wall, "busy_ms": busy_ms, "k2_ms": k2_ms}
 
 
@@ -986,6 +998,7 @@ def run_stages_on_mesh(mesh, images, calib, unsharded):
     import numpy as np
     import torch
 
+    from sfm_tpu_torch.config import MvsConfig
     from sfm_tpu_torch.ops.gather import (
         sample_normalized_patches,
         sample_normalized_patches_sharded,
@@ -1060,9 +1073,14 @@ def run_stages_on_mesh(mesh, images, calib, unsharded):
           "sharded MVS dense count within 1 %")
     check(med < 0.02 and p90 < 0.06 and outward > 0.9, "sharded MVS sphere bounds")
     # Every sweep goes through K2s's launch step; seeding's is one shard.
-    check(l_mvs["sample_normalized_patches_sharded"] == 1 + n * rounds
-          and l_mvs["sample_normalized_patches"] == 1 + n * rounds,
-          "K2 once per shard per expansion sweep (plus the unsharded seeding)")
+    # A round enqueued ahead and never read sweeps too.
+    enq, wasted = enqueued_rounds(rounds, sdense.metrics.values["mvs_num_points"],
+                                  sdense.num_seeds, MvsConfig())
+    log(f"MVS on {mesh}: {rounds} rounds read, {enq} enqueued ({wasted} wasted)")
+    check(l_mvs["sample_normalized_patches_sharded"] == 1 + n * enq
+          and l_mvs["sample_normalized_patches"] == 1 + n * enq,
+          f"K2 once per shard per expansion sweep (plus the unsharded seeding): "
+          f"{l_mvs}, {enq} rounds enqueued, {wasted} wasted")
     check(l_mvs["harris_response"] == 0, "MVS launched K1")
     return {"sfm_s": s_wall, "ba_s": b_wall, "mvs_s": sm_wall,
             "sfm_pair_geometry_s": srecon.timers.times["pair_geometry"],
@@ -1110,7 +1128,7 @@ def run_allpairs(images, calib, seq4, smi):
     import numpy as np
     import torch
 
-    from sfm_tpu_torch.config import PipelineConfig
+    from sfm_tpu_torch.config import MvsConfig, PipelineConfig
     from sfm_tpu_torch.ops.gather import (
         sample_normalized_patches,
         sample_normalized_patches_sharded,
@@ -1175,18 +1193,17 @@ def run_allpairs(images, calib, seq4, smi):
           f"all-pairs peak {out['peak_bytes']} > chunk budget {budget} + "
           f"resident {resident}")
 
-    # Where the stage's device time goes, under torch.profiler (opened with
-    # marker fills: the profiler may lose a session's first events).
-    from torch.profiler import ProfilerActivity, profile
+    # Where the stage's device time goes, under torch.profiler: a session
+    # that did not see the stage's one K1 and one K2 kernel lost events.
+    from sfm_tpu_torch.tools.measure import kernel_named, profiled
 
-    marker = torch.empty(1024, device=dev)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(32):
-            marker.fill_(0.0)
-        torch.cuda.synchronize()
-        _, p_wall = run_sfm(images, calib, kernels=True, pair_mode="combination")
-    kern = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    def one_each(_, kernels):
+        return all(sum(kernel_named(e.name, base) for e in kernels) == 1
+                   for base in ("harris_kernel", "gather_kernel"))
+
+    (_, p_wall), kern, _ = profiled(
+        lambda: run_sfm(images, calib, kernels=True, pair_mode="combination"),
+        one_each, log=log, what="all-pairs SfM under the profiler")
     by_name = {}
     for e in kern:
         by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.time_range.elapsed_us() / 1e3
@@ -1262,9 +1279,13 @@ def run_allpairs(images, calib, seq4, smi):
                   "rounds": dense.metrics.values["mvs_rounds"], "wall_s": m_wall,
                   "median": med, "p90": p90, "outward": outward,
                   "launches": l_mvs}
+    enq, out["mvs"]["wasted_rounds"] = enqueued_rounds(
+        out["mvs"]["rounds"], dense.metrics.values["mvs_num_points"],
+        dense.num_seeds, MvsConfig())
     log("all-pairs MVS: " + json.dumps(out["mvs"]))
-    check(l_mvs["sample_normalized_patches"] > 0 and l_mvs["harris_response"] == 0,
-          "all-pairs MVS launches")
+    check(l_mvs["sample_normalized_patches"] == 1 + enq
+          and l_mvs["harris_response"] == 0,
+          f"all-pairs MVS launches {l_mvs}: not 1 + {enq} rounds enqueued")
     check(dense.num_points > 10000 and med < 0.02 and p90 < 0.06
           and outward > 0.9, "all-pairs MVS dense gates")
 
@@ -1456,7 +1477,13 @@ def run_stress(smi):
     log("stress kernels: " + json.dumps(kern))
     del gray, stack
     torch.cuda.empty_cache()
-    return {"kernels": kern, "k2_round_max_abs_err": k2_round["max_abs_err"]}
+    # Phase 25's comparison once on this ring: pipelined against serial.
+    schedule = run_schedule(fresh, recon, smi, "stress ring",
+                            scales=(st.MVS_SCALE,), chunks=(),
+                            want_points={st.MVS_SCALE: result["dense_points"]},
+                            mvs_config=cfg.mvs)
+    return {"kernels": kern, "k2_round_max_abs_err": k2_round["max_abs_err"],
+            "schedule": schedule}
 
 
 def ba_scale_record():
@@ -1843,6 +1870,7 @@ def stages_across_processes(tmp, inp, images, calib, world, backend, smi):
     import numpy as np
     import torch
 
+    from sfm_tpu_torch.config import MvsConfig
     from sfm_tpu_torch.parallel import DataMesh
 
     label = f"{world} {backend} processes"
@@ -1897,16 +1925,20 @@ def stages_across_processes(tmp, inp, images, calib, world, backend, smi):
     check(n_pts > 10000 and dmed < 0.02 and dp90 < 0.06 and outward > 0.9,
           f"{label}: MVS gates")
     rounds = int(got["mvs/rounds"])
+    enq, wasted = enqueued_rounds(rounds, n_pts, int(got["mvs/num_seeds"]),
+                                  MvsConfig())
+    log(f"{label}: MVS {rounds} rounds read, {enq} enqueued ({wasted} wasted)")
     for r, m in enumerate(meta):
         lc = m["launches"]
         check(lc["sfm"]["harris_response"] == 1
               and lc["sfm"]["sample_normalized_patches"] == 1,
               f"{label}: rank {r}: SfM launched K1 / K2 {lc['sfm']}, not once each")
-        check(lc["mvs"]["sample_normalized_patches"] == 1 + rounds
-              and lc["mvs"]["sample_normalized_patches_sharded"] == 1 + rounds
+        check(lc["mvs"]["sample_normalized_patches"] == 1 + enq
+              and lc["mvs"]["sample_normalized_patches_sharded"] == 1 + enq
               and lc["mvs"]["harris_response"] == 0,
               f"{label}: rank {r}: MVS launches {lc['mvs']}, not K2 once per "
-              f"sweep (seeding + {rounds} rounds)")
+              f"sweep (seeding + {enq} rounds enqueued, {rounds} read, "
+              f"{wasted} wasted)")
         check(lc["ba"]["harris_response"] == lc["ba"]["sample_normalized_patches"]
               == lc["joint_ba"]["sample_normalized_patches"] == 0,
               f"{label}: rank {r}: BA launched an image kernel")
@@ -2021,6 +2053,8 @@ def run_bench(images, ba_recon, tracks4, rms8, seeds9, smi):
             seed=0)
         r = bench_line(ds, "--warm", "3")
         j = bench_line(ds, "--refine_cameras", "--warm", "1", "--no-kernels")
+        s = bench_line(ds, "--no-defer-fetch", "--no-seed-overlap", "--warm", "3",
+                       "--no-kernels")
 
     harris_response.launches = sample_normalized_patches.launches = 0
     dense = dense_reconstruction(images, ba_recon.calib, ba_recon, MvsConfig(),
@@ -2028,11 +2062,17 @@ def run_bench(images, ba_recon, tracks4, rms8, seeds9, smi):
     torch.cuda.synchronize()
     k2_mvs = sample_normalized_patches.launches
     check(harris_response.launches == 0, "MVS launched K1")
+    mv = dense.metrics.values
+    enq, wasted = enqueued_rounds(mv["mvs_rounds"], mv["mvs_num_points"],
+                                  dense.num_seeds, MvsConfig())
     med, p90, outward = dense_bounds(dense.points, dense.normals)
     log(f"MVS at scale 10 in this process: {dense.num_seeds} seeds -> "
-        f"{dense.num_points} points in {dense.metrics.values['mvs_rounds']} rounds, "
-        f"{k2_mvs} K2 launches; |c|-1 median {med:.2e} p90 {p90:.2e}; n.c > 0 "
-        f"share {outward:.4f}; metrics " + dense.metrics.to_json())
+        f"{dense.num_points} points in {mv['mvs_rounds']} rounds, "
+        f"{k2_mvs} K2 launches ({enq} rounds enqueued, {wasted} wasted); |c|-1 "
+        f"median {med:.2e} p90 {p90:.2e}; n.c > 0 share {outward:.4f}; metrics "
+        + dense.metrics.to_json())
+    check(k2_mvs == 1 + enq,
+          f"scale-10 MVS K2 launches {k2_mvs} != 1 + {enq} rounds enqueued")
     check(dense.num_seeds == seeds9 and dense.num_points >= seeds9,
           f"scale-10 MVS: {dense.num_seeds} seeds (phase 9: {seeds9}), "
           f"{dense.num_points} points")
@@ -2059,6 +2099,12 @@ def run_bench(images, ba_recon, tracks4, rms8, seeds9, smi):
               f"bench {name}: kernel-only ms and bound")
     check(j["refine_cameras"] is True and j["tracks"] == tracks4
           and "kernels" not in j, "bench --refine_cameras line")
+    check(r["overlap"] == {"ba_defer_fetch": True, "seed_fetch": True}
+          and s["overlap"] == {"ba_defer_fetch": False, "seed_fetch": False},
+          f"bench overlap keys {r['overlap']} / {s['overlap']}")
+    check(all(s[k] == r[k] for k in ("tracks", "rms_reproj_px",
+                                     "rms_reproj_refined_px", "dense_points")),
+          "bench --no-defer-fetch --no-seed-overlap changed an output")
     check(j["rms_reproj_refined_px"] <= r["rms_reproj_refined_px"],
           f"joint BA rms {j['rms_reproj_refined_px']} above points-only "
           f"{r['rms_reproj_refined_px']}")
@@ -2068,11 +2114,250 @@ def run_bench(images, ba_recon, tracks4, rms8, seeds9, smi):
         "cold_attribution": r["cold_attribution"], "timers": r["timers"],
         "cold_timers": r["cold_timers"],
         "joint_wall_s": j["wall_s"],
+        "no_overlap_wall_s": s["wall_s"],
+        "no_overlap_wall_median_s": s["wall_median_s"],
+        "no_overlap_wall_samples_s": s["wall_samples_s"],
+        "wall_samples_s": r["wall_samples_s"],
+        "no_overlap_timers": s["timers"],
+        "mvs_wasted_rounds_scale10": wasted,
         "joint_rms_refined_px": j["rms_reproj_refined_px"],
         "dense_points_scale10": dense.num_points,
         "mvs_rounds_scale10": dense.metrics.values["mvs_rounds"]}))
     log(f"phase 24 wall {time.perf_counter() - t_phase:.2f} s")
     return r
+
+
+# --- phase 25: the MVS schedule ---------------------------------------------
+
+SCHEDULE_SAMPLES = 3  # timed runs of each pipelined schedule (median)
+# The ring's dense clouds at the MVS defaults, by scale (phases 9 and 24 of
+# every run since they were first measured).
+RING_POINTS = {1.0: 118_279, 10.0: 8_494}
+
+
+def check_round_sync(images, recon):
+    """One ``expansion_round`` at the MVS defaults under
+    ``torch.cuda.set_sync_debug_mode("error")`` on the seeded frontier,
+    a chunk of two rounds, then at ``round_capacity`` 2048 (below the
+    seeds) the frontier split with a backlog, a round, the backlog merge
+    and a round: none may call a synchronizing CUDA function.  Each
+    payload is held to the same call outside the mode."""
+    import numpy as np
+    import torch
+
+    from sfm_tpu_torch.config import MvsConfig
+    from sfm_tpu_torch.io.images import device_gray
+    from sfm_tpu_torch.mvs.cells import make_occupancy
+    from sfm_tpu_torch.mvs.expand import expansion_round
+    from sfm_tpu_torch.mvs.pipeline import _merge_backlog, _split_frontier
+    from sfm_tpu_torch.mvs.seed import build_seed_candidates, seed_patches
+
+    dev = torch.device("cuda")
+    n, h, w = images.shape[:3]
+    cfg = MvsConfig()
+    gray = device_gray(images, dev).to(torch.bfloat16)
+    cal = recon.calib
+    K, R, t, C = (torch.as_tensor(np.asarray(a, np.float32), device=dev)
+                  for a in (cal.K, cal.R, cal.t, cal.centers))
+    tid, ref_obs, oth = build_seed_candidates(recon.track_offsets, recon.track_obs)
+    ints = [torch.as_tensor(np.asarray(a, np.int32), device=dev)
+            for a in (tid, ref_obs, oth)]
+    occ = make_occupancy(n, h, w, cfg.cell_size, dev)
+    seeds, occ, _ = seed_patches(gray, K, R, t, C, *ints, recon.num_tracks, occ,
+                                 cfg, cfg.visible_lower_bound)
+    keys = ("c", "n", "vis", "proj", "valid")
+
+    def step(fr, occ, cap, k=1):
+        return expansion_round(gray, K, R, t, C, occ, *(fr[x] for x in keys),
+                               cfg, cfg.visible_lower_bound, cap, 1.0,
+                               rounds_per_call=k)
+
+    def calls():
+        fr, _ = _split_frontier(seeds, cfg.round_capacity)
+        one = step(fr, occ, cfg.round_capacity)[2]
+        two = step(fr, occ, cfg.round_capacity, k=2)[2]
+        fr, bl = _split_frontier(seeds, 2048)
+        acc, occ2, first = step(fr, occ, 2048)
+        fr, bl = _merge_backlog(acc, bl, 2048)
+        merged = step(fr, occ2, 2048)[2]
+        return {"round": one, "chunk_of_2": two, "backlog_round_1": first,
+                "backlog_merged_round": merged, "backlog_left": bl["valid"].sum()}
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = calls()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = calls()
+    torch.cuda.synchronize()
+    same = {k: bool(torch.equal(got[k], want[k])) for k in got}
+    check(all(same.values()), f"rounds under sync debug mode differ: {same}")
+    out = {"seeds": int(seeds["valid"].sum()),
+           "backlog_after_merge": int(got["backlog_left"]),
+           "accepted": {k: int(v[..., -1, 6].sum()) for k, v in got.items()
+                        if k != "backlog_left"}}
+    check(out["backlog_after_merge"] > 0, "the backlog case kept no backlog")
+    log("sync check: expansion_round, a chunk of 2, the backlog split and "
+        "merge under set_sync_debug_mode('error'): no synchronizing call; "
+        + json.dumps(out))
+    return out
+
+
+def schedule_run(images, recon, cfg, scale, serial=False, blocking=False,
+                 profile=False):
+    """One MVS stage at ``cfg`` and ``scale`` on the card, K2's counts set
+    to 0 just before it.  ``serial``: the JAX condition rules
+    dispatch-ahead out, a checkpoint due every chunk (its saves timed).
+    ``blocking``: each payload copy is waited for when it is enqueued, so
+    the host waits for every chunk before it enqueues the next (the
+    schedule's walls without its overlap, and without checkpoint saves).
+    Returns (dense, wall, K2 launches, save seconds, (device busy ms, host
+    ms waiting on payload events) under torch.profiler with ``profile``,
+    else None)."""
+    import torch
+
+    from sfm_tpu_torch.mvs import dense_reconstruction, pipeline
+    from sfm_tpu_torch.ops.gather import sample_normalized_patches
+    from sfm_tpu_torch.tools.measure import kernel_named, profiled
+    from sfm_tpu_torch.utils import checkpoint
+
+    class BlockingCopy(pipeline._HostCopy):
+        def __init__(self, t):
+            super().__init__(t)
+            self.numpy()
+
+    real_save, saves = checkpoint.save_mvs_state, [0.0]
+
+    def timed_save(*a, **kw):
+        t0 = time.perf_counter()
+        real_save(*a, **kw)
+        saves[0] += time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as ck, contextlib.ExitStack() as stack:
+        kw = {}
+        if serial:
+            kw = dict(checkpoint_dir=ck, checkpoint_every=max(cfg.rounds_per_call, 1))
+            checkpoint.save_mvs_state = timed_save
+            stack.callback(setattr, checkpoint, "save_mvs_state", real_save)
+        if blocking:
+            stack.callback(setattr, pipeline, "_HostCopy", pipeline._HostCopy)
+            pipeline._HostCopy = BlockingCopy
+
+        def run():
+            torch.cuda.synchronize()
+            sample_normalized_patches.launches = 0
+            t0 = time.perf_counter()
+            dense = dense_reconstruction(images, recon.calib, recon, cfg,
+                                         scale=scale, device="cuda", **kw)
+            torch.cuda.synchronize()
+            return dense, time.perf_counter() - t0, sample_normalized_patches.launches
+
+        if not profile:
+            dense, wall, launches = run()
+            return dense, wall, launches, saves[0], None
+        # A session that did not see one K2 kernel for each K2 launch lost
+        # events and is taken again.
+        (dense, wall, launches), kernels, prof = profiled(
+            run, lambda r, kernels: r[2] == sum(
+                kernel_named(e.name, "gather_kernel") for e in kernels),
+            log=log, what="MVS schedule under the profiler")
+    busy = (sum(e.time_range.elapsed_us() for e in kernels) / 1e3,
+            sum(e.time_range.elapsed_us() for e in prof.events()
+                if e.name == "cudaEventSynchronize") / 1e3)
+    return dense, wall, launches, saves[0], busy
+
+
+def run_schedule(images, recon, smi, label, scales=(1.0, 10.0), chunks=(2, 4),
+                 want_points=None, mvs_config=None):
+    """Phase 25 on one scene: at each scale the default (pipelined) MVS
+    against the serial loop (``overlap_seed_fetch`` off, a checkpoint
+    every round), and ``rounds_per_call`` k against the same k serial (a
+    checkpoint every k rounds): points, colours, normals, scores and refs
+    bit-identical, K2's launches those of the dispatch-ahead rule
+    (``enqueued_rounds``, the seed sweep plus one a round enqueued).  The
+    serial loop's wall is mostly its saves; the walls compared are the
+    pipelined run's and the blocking one's (``schedule_run``), each the
+    median of ``SCHEDULE_SAMPLES``, with the device busy share of one more
+    run of each under torch.profiler.  ``want_points`` holds the expected
+    point count per scale; ``mvs_config`` the MVS configuration (default the
+    CLI's) whose ``rounds_per_call`` is varied.  ``payload_wait_ms`` is the host's time in
+    ``cudaEventSynchronize`` (waiting for payload copies) in that run."""
+    import dataclasses
+    import statistics
+
+    import numpy as np
+
+    from sfm_tpu_torch.config import MvsConfig
+
+    rows = {}
+    for scale in scales:
+        base = None
+        for k in (1, *chunks):
+            cfg = dataclasses.replace(mvs_config or MvsConfig(), rounds_per_call=k)
+            ser_cfg = dataclasses.replace(cfg, overlap_seed_fetch=False)
+            walls, b_walls = [], []
+            for _ in range(SCHEDULE_SAMPLES):
+                dense, wall, launches, _, _ = schedule_run(images, recon, cfg, scale)
+                walls.append(wall)
+                b_walls.append(schedule_run(images, recon, cfg, scale,
+                                            blocking=True)[1])
+            busy_wall, (busy, wait) = schedule_run(images, recon, cfg, scale,
+                                                   profile=True)[1::3]
+            b_busy_wall, (b_busy, b_wait) = schedule_run(
+                images, recon, cfg, scale, blocking=True, profile=True)[1::3]
+            serial, s_wall, s_launches, s_saves, _ = schedule_run(
+                images, recon, ser_cfg, scale, serial=True)
+            same = {f: bool(np.array_equal(getattr(dense, f), getattr(serial, f)))
+                    for f in ("points", "colors", "normals", "scores", "refs")}
+            mv = dense.metrics.values
+            rounds = mv["mvs_rounds"]
+            enq, wasted = enqueued_rounds(rounds, mv["mvs_num_points"],
+                                          dense.num_seeds, cfg,
+                                          backlog_left=mv.get("mvs_backlog_remaining", 0))
+            s_enq, s_wasted = enqueued_rounds(
+                rounds, mv["mvs_num_points"], dense.num_seeds, ser_cfg, serial=True)
+            row = {
+                "points": dense.num_points, "seeds": dense.num_seeds,
+                "rounds": rounds, "bit_identical_to_serial": same,
+                "k2_launches": launches, "rounds_enqueued": enq,
+                "wasted_rounds": wasted, "serial_k2_launches": s_launches,
+                "serial_wasted_rounds": s_wasted,
+                "wall_s": statistics.median(walls), "wall_samples_s": walls,
+                "busy_ms": busy, "busy_share": busy / 1e3 / busy_wall,
+                "payload_wait_ms": wait,
+                "blocking_wall_s": statistics.median(b_walls),
+                "blocking_wall_samples_s": b_walls,
+                "blocking_busy_ms": b_busy,
+                "blocking_busy_share": b_busy / 1e3 / b_busy_wall,
+                "blocking_payload_wait_ms": b_wait,
+                "serial_wall_s": s_wall, "serial_saves_s": s_saves,
+            }
+            key = f"{label} scale {scale:g} rounds_per_call {k}"
+            rows[key] = row
+            log(f"MVS schedule, {key}, on {smi}: " + json.dumps(row))
+            check(all(same.values()), f"{key}: not bit-identical to the serial "
+                  f"loop: {same}")
+            check(serial.metrics.values["mvs_rounds"] == rounds,
+                  f"{key}: serial rounds differ")
+            check(launches == 1 + enq,
+                  f"{key}: K2 launches {launches} != 1 seed sweep + {enq} rounds "
+                  f"enqueued ({rounds} read, {wasted} wasted)")
+            check(s_launches == 1 + s_enq,
+                  f"{key}: serial K2 launches {s_launches} != 1 + {s_enq} "
+                  f"({s_wasted} wasted)")
+            if base is None:
+                base = dense
+                if want_points:
+                    check(dense.num_points == want_points[scale],
+                          f"{key}: {dense.num_points} points, not "
+                          f"{want_points[scale]}")
+            elif not mv.get("mvs_backlog_rounds"):
+                # Without a backlog a chunk of rounds is the rounds one by one.
+                check(all(np.array_equal(getattr(dense, f), getattr(base, f))
+                          for f in ("points", "refs")),
+                      f"{key}: with no backlog the cloud is rounds_per_call 1's")
+    return rows
 
 
 def main() -> int:
@@ -2231,6 +2516,8 @@ def main() -> int:
     check(med < 0.01 and p95 < 0.05, f"BA sphere bounds median {med} p95 {p95}")
 
     # --- 9. dense MVS at the CLI defaults -----------------------------------
+    from sfm_tpu_torch.config import MvsConfig
+
     first, first_wall = run_mvs(images, recon, kernels=None)  # warm
     harris_response.launches = 0
     sample_normalized_patches.launches = 0
@@ -2240,9 +2527,15 @@ def main() -> int:
     check(harris_response.launches == 0, "MVS launched K1")
     check(sample_normalized_patches_sharded.launches == launches_mvs,
           "an MVS sweep bypassed K2s's launch step (a mesh of one shard)")
-    log(f"launches in the timed MVS run: sample_normalized_patches {launches_mvs}")
-    check(launches_mvs > 0, "sample_normalized_patches not launched on the MVS path")
     mv = dense.metrics.values
+    enq9, wasted9 = enqueued_rounds(mv["mvs_rounds"], mv["mvs_num_points"],
+                                    dense.num_seeds, MvsConfig())
+    log(f"launches in the timed MVS run: sample_normalized_patches {launches_mvs} "
+        f"(seeding + {enq9} rounds enqueued: {mv['mvs_rounds']} read, {wasted9} "
+        "wasted)")
+    check(launches_mvs > 0, "sample_normalized_patches not launched on the MVS path")
+    check(launches_mvs == 1 + enq9,
+          f"MVS K2 launches {launches_mvs} != 1 + {enq9} rounds enqueued")
     med, p90, outward = dense_bounds(dense.points, dense.normals)
     log(f"MVS (kernels): {dense.num_seeds} seeds -> {dense.num_points} points in "
         f"{mv['mvs_rounds']} rounds; |c|-1 median {med:.2e} p90 {p90:.2e}; "
@@ -2521,6 +2814,12 @@ def main() -> int:
     bench = run_bench(images, recon, sparse4.num_tracks, rms_after,
                       dense.num_seeds, smi)
 
+    # --- 25. the MVS schedule: no host read in a round; pipelined, chunked ----
+    t0 = time.perf_counter()
+    check_round_sync(images, recon)
+    schedule = run_schedule(images, recon, smi, "ring", want_points=RING_POINTS)
+    log(f"phase 25 (MVS schedule) wall {time.perf_counter() - t0:.2f} s")
+
     log(f"stage walls at {SHARDS} virtual shards on {smi}: " + json.dumps({
         "sfm_s": sh["sfm_s"], "ba_s": sh["ba_s"], "mvs_s": sh["mvs_s"],
         "sfm_unsharded_s": wall, "ba_unsharded_s": ba_wall,
@@ -2572,6 +2871,10 @@ def main() -> int:
          "kernel_only_ms_fractional": kernel_only["k2_frac"],
          "samples_fractional": img_f.numel(),
          "launches_mvs": launches_mvs,
+         "wasted_rounds_mvs": wasted9,
+         "launches_mvs_schedule": {k: v["k2_launches"] for k, v in schedule.items()},
+         "wasted_rounds_mvs_schedule": {k: v["wasted_rounds"]
+                                        for k, v in schedule.items()},
          "launches_filter": f_seen["launches"],
          "samples_filter": f_seen["samples"],
          "mvs_share": prof["k2_ms"] / 1e3 / prof["wall_s"],

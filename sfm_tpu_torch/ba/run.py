@@ -7,10 +7,10 @@ keeps cameras at calibration) the cameras are frozen in the solve itself;
 ``refine_cameras=True`` runs the joint solve, its reduced camera system by a
 dense Cholesky solve or by PCG (``dense_gate``).
 The same ``info`` keys and ``recon.metrics`` records as the JAX package,
-plus the dense gate's counts.
-Its ``defer_fetch`` / ``finalize`` and packed-solution fetch hide a
-remote-TPU link's latency and have no counterpart here (ROADMAP "Not to
-port").
+plus the dense gate's counts.  ``defer_fetch`` leaves the solution on the
+device until ``info["finalize"]()``, as in the JAX package, so a caller can
+enqueue MVS first (MVS re-triangulates its seeds from the observations and
+never reads the refined points).
 """
 
 from __future__ import annotations
@@ -84,9 +84,18 @@ def bundle_adjust(
     config: BaConfig = BaConfig(),
     mesh=None,
     device=RuntimeConfig.device,
+    defer_fetch: bool = False,
 ):
     """Refine a SparseReconstruction in place on ``device``; returns
     (recon, info dict).
+
+    ``defer_fetch=True`` enqueues the solve but leaves its host copies
+    (points, cost, iterations, the refined cameras) and the write-back into
+    ``recon`` to ``info["finalize"]()``, which must be called before
+    ``recon.world`` or the solution's ``info`` keys are read; it is
+    idempotent, and the eager default calls it before returning.  The
+    solver's LM loop reads its stopping flag every iteration, so little of
+    the solve is left to run at the return.
 
     With ``mesh`` (a ``parallel.DataMesh``) the observations are split over
     its shards (``ba.sharded.solve_lm_sharded``) and the solve runs on
@@ -128,10 +137,7 @@ def bundle_adjust(
             cams, points, cost, iters = solve_lm_sharded(problem, mesh, **solve)
         else:
             cams, points, cost, iters = solve_lm(problem, **solve)
-        points = points.cpu().numpy()
-        final_cost = float(cost)
     n_obs = problem.num_observations
-    recon.world = points[: recon.num_tracks].astype(np.float64)
     info = {
         "num_observations": n_obs,
         "num_points": recon.num_tracks,
@@ -142,30 +148,45 @@ def bundle_adjust(
             else ("pcg" if config.refine_cameras else "frozen")
         ),
         "timers": timers.times,
-        "final_cost": final_cost,
-        "iterations": int(iters),
-        # The optimum's own rms, against the REFINED parameter set
-        # (cost = 0.5 * sum r^2 over 2 * n_obs components).
-        "rms_reproj_refined_px": float(
-            np.sqrt(2.0 * final_cost / max(n_obs, 1))
-        ),
     }
     if config.refine_cameras:
         info.update(gate)
         for k, v in gate.items():
             recon.metrics.record(k, v)
-        # Without the problem's padded camera rows.
-        info["cams11"] = cams[: recon.calib.num_views].cpu().numpy()
-    recon.metrics.record("ba_final_cost", info["final_cost"])
-    recon.metrics.record("ba_iterations", info["iterations"])
-    # With frozen cameras the refined-parameter rms IS the rms against the
-    # stored calibration; the joint solve's cameras differ from it, so
-    # there it is computed against the calibration.
-    recon.metrics.record(
-        "ba_rms_reproj_after_px",
-        info["rms_reproj_refined_px"] if not config.refine_cameras
-        else recon.rms_reprojection_error(),
-    )
     if mesh is not None:
         recon.metrics.record("ba_mesh_devices", mesh.size)
+
+    def finalize():
+        """Copy the solution to the host and publish it into ``recon`` and
+        ``info`` (idempotent)."""
+        if "final_cost" in info:
+            return recon, info
+        with timers.stage("fetch"):
+            world = points.cpu().numpy()
+            final_cost = float(cost)
+            info["iterations"] = int(iters)
+            if config.refine_cameras:
+                # Without the problem's padded camera rows.
+                info["cams11"] = cams[: recon.calib.num_views].cpu().numpy()
+        recon.world = world[: recon.num_tracks].astype(np.float64)
+        info["final_cost"] = final_cost
+        # The optimum's own rms, against the REFINED parameter set
+        # (cost = 0.5 * sum r^2 over 2 * n_obs components).
+        info["rms_reproj_refined_px"] = float(
+            np.sqrt(2.0 * final_cost / max(n_obs, 1)))
+        recon.metrics.record("ba_final_cost", info["final_cost"])
+        recon.metrics.record("ba_iterations", info["iterations"])
+        # With frozen cameras the refined-parameter rms IS the rms against
+        # the stored calibration; the joint solve's cameras differ from it,
+        # so there it is computed against the calibration.
+        recon.metrics.record(
+            "ba_rms_reproj_after_px",
+            info["rms_reproj_refined_px"] if not config.refine_cameras
+            else recon.rms_reprojection_error(),
+        )
+        return recon, info
+
+    info["finalize"] = finalize
+    if not defer_fetch:
+        finalize()
     return recon, info

@@ -4,10 +4,12 @@ The same frozen dataclass tree, field names and defaults as
 ``sfm_tpu/config.py`` (where each default's provenance is documented), so a
 config reads the same in both packages.  The one difference is
 ``RuntimeConfig``: the JAX package's ``use_pallas`` becomes ``device`` plus
-the ``kernels`` switch.  Fields that only drive JAX/TPU machinery
-(``pairs_per_step``, ``shape_buckets``, ``rounds_per_call``,
-``overlap_seed_fetch``) stay so configs carry over; nothing here reads them
-(each one leaves the JAX package's output unchanged too).
+the ``kernels`` switch.  ``pairs_per_step`` only drives JAX/TPU machinery
+and stays so configs carry over; nothing here reads it.  ``shape_buckets``
+sets only the image-axis width of the mid-MVS state file here.  The MVS
+host loop's schedule is the JAX package's: ``rounds_per_call`` (rounds a
+chunk, the backlog merged only between chunks, so with a backlog it
+changes the cloud, in both packages) and ``overlap_seed_fetch``.
 """
 
 from __future__ import annotations

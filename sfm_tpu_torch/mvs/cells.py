@@ -58,7 +58,9 @@ def fill_cells(occupancy, img_idx, cells, mask):
     package scatters ``mask`` with a bool max (masked rows send False to
     cell 0, a no-op); bool has no scatter-max here, so every row writes
     True and masked rows write it to one spare slot past the grid, which
-    is then dropped: order-free, deterministic, and no host sync.
+    is then dropped: order-free, deterministic, and no host sync (an
+    ``index_fill_`` with the scalar; an indexed assignment of ``True``
+    copies the scalar to the device and waits for it).
     """
     cx, cy = occupancy.shape[1], occupancy.shape[2]
     size = occupancy.numel()
@@ -67,5 +69,5 @@ def fill_cells(occupancy, img_idx, cells, mask):
     lin = (img_idx.long() * cx + ci) * cy + cj
     lin = torch.where(mask, lin, torch.full_like(lin, size))
     flat = torch.cat([occupancy.reshape(-1), occupancy.new_zeros(1)])
-    flat[lin.reshape(-1)] = True
+    flat.index_fill_(0, lin.reshape(-1), True)
     return flat[:size].reshape(occupancy.shape)

@@ -15,10 +15,16 @@ With a mesh (``parallel.DataMesh``) the compacted candidate batch is split
 over the shards for photo-consistency (projection, view gate, K2 sweep,
 NCC), as the JAX package constrains it to shard along its mesh; candidate
 enumeration, compaction, geometry, the cell claims and the occupancy stay
-on the lead device.  The JAX package's ``rounds_per_call`` chunking
-(several rounds in one device program, to amortise a remote link's fetch)
-has no counterpart: this is one round per call, the chunked output being
-identical.
+on the lead device.
+
+A round reads nothing back to the host: the compaction is
+``ordered_compact`` (no ``torch.nonzero``) and the round's constants are
+made on the device, so the host can enqueue the next round before it reads
+this one's payload (``mvs/pipeline.py``).  ``rounds_per_call`` > 1 enqueues
+that many rounds back to back, the frontier and occupancy carried from one
+to the next with no backlog merge between them: the JAX package's chunk of
+rounds (one ``lax.scan``), whose cloud differs from one round a call
+whenever a backlog is pending.
 """
 
 from __future__ import annotations
@@ -43,18 +49,29 @@ from sfm_tpu_torch.mvs.photoconsistency import (
 )
 from sfm_tpu_torch.parallel.mesh import DataMesh
 
-_OFFSETS = ((-1, -1), (-1, 1), (1, -1), (1, 1))
+
+def ordered_compact(flags, size: int, fill: int):
+    """``jnp.nonzero(flags, size=size, fill_value=fill)[0]`` as int64: the
+    indices of the first ``size`` True flags, ascending, padded with
+    ``fill``, with no host read (the JAX package's ``ordered_compact``).
+    Each True flag's rank (a cumsum) is its slot; flags past ``size`` and
+    False flags all go to one spare slot past the end, which is dropped.
+    The pad repeats one index; if that candidate is valid its copies lose
+    the cell claim to it (the claim key's ``- idx * 1e-7``)."""
+    n = flags.shape[0]
+    pos = torch.cumsum(flags, 0, dtype=torch.int64) - 1
+    slot = torch.where(flags & (pos < size), pos, torch.full_like(pos, size))
+    out = torch.full((size + 1,), fill, dtype=torch.int64, device=flags.device)
+    out.scatter_(0, slot, torch.arange(n, dtype=torch.int64,
+                                       device=flags.device))
+    return out[:size]
 
 
-def _nonzero_static(flags, size: int, fill: int):
-    """``jnp.nonzero(flags, size=size, fill_value=fill)[0]``: the indices of
-    the first ``size`` True flags, ascending, padded with ``fill``.  The
-    pad repeats one index; if that candidate is valid its copies lose the
-    cell claim to it (the claim key's ``- idx * 1e-7``).  One host sync."""
-    idx = torch.nonzero(flags).reshape(-1)[:size]
-    pad = torch.full((size - idx.shape[0],), fill, dtype=idx.dtype,
-                     device=idx.device)
-    return torch.cat([idx, pad])
+def _diagonal_offsets(dev):
+    """(4, 2) int32 [(-1, -1), (-1, 1), (1, -1), (1, 1)], made on ``dev``
+    (no host-to-device copy)."""
+    k = torch.arange(4, dtype=torch.int32, device=dev)
+    return torch.stack([k // 2, k % 2], dim=1) * 2 - 1
 
 
 def _norm(v):
@@ -72,22 +89,46 @@ def expansion_round(
     scale: float,
     kernels=None,
     mesh=None,
+    rounds_per_call: int = 1,
 ):
-    """One expansion round over the frontier.
+    """``rounds_per_call`` expansion rounds over the frontier, enqueued
+    back to back with no host read (the counterpart of the JAX package's
+    ``_make_round_program``).
 
     Frontier tensors: f_c (F,3), f_n (F,3), f_vis (F,N), f_proj (F,N,2),
     f_valid (F,); gray (N,H,W) bf16.  ``mesh`` defaults to a mesh of
     ``f_c``'s one device; gray, K, R and t may be the per-shard lists of
     ``mesh.replicate`` (entry 0 on the lead device, where every other
-    tensor lies).  Returns (accepted dict of capacity
+    tensor lies).  Returns (the last round's accepted dict of capacity
     ``round_capacity`` — the next frontier, masked by 'valid' —, new
-    occupancy, packed (C+1, 11) float32: rows 0..C-1 per
+    occupancy, packed float32).  packed is (C+1, 11) for one round, else
+    (rounds_per_call, C+1, 11), one payload a round: rows 0..C-1 per
     ``photoconsistency.pack_patch_payload``, row C the round's counters
     [n_candidates, hits_dropped, scored, ray+finite, +geometry, +NCC
-    views, accepted]).
+    views, accepted].  A round after one that accepted nothing has an
+    empty frontier and accepts nothing.
     """
     mesh = mesh or DataMesh([f_c.device])
     shards = [mesh.replicate(x) for x in (gray, K, R, t)]
+    packs = []
+    for _ in range(max(rounds_per_call, 1)):
+        accepted, occupancy, packed = _one_round(
+            shards, centers_cam, occupancy, f_c, f_n, f_vis, f_proj, f_valid,
+            config, visible_lower_bound, round_capacity, scale, kernels, mesh,
+        )
+        f_c, f_n, f_vis, f_proj, f_valid = (
+            accepted[k] for k in ("c", "n", "vis", "proj", "valid"))
+        packs.append(packed)
+    if rounds_per_call <= 1:
+        return accepted, occupancy, packs[0]
+    return accepted, occupancy, torch.stack(packs)
+
+
+def _one_round(shards, centers_cam, occupancy, f_c, f_n, f_vis, f_proj,
+               f_valid, config, visible_lower_bound, round_capacity, scale,
+               kernels, mesh):
+    """One expansion round (``expansion_round``'s body); ``shards`` are
+    the per-shard (gray, K, R, t)."""
     gray, K, R, t = (x[0] for x in shards)
     dev = f_c.device
     n_img = gray.shape[0]
@@ -109,13 +150,12 @@ def expansion_round(
     # Visible hits beyond k_hit would be dropped: counted, never silent.
     hits_dropped = hit_flags.sum() - hit_valid.sum()
     hit_img = hit_img2.to(torch.int32).reshape(-1)             # (H,)
-    hit_patch = torch.arange(F, device=dev).repeat_interleave(k_hit)
+    hit_patch = torch.arange(F, device=dev)[:, None].expand(F, k_hit).reshape(-1)
     hit_pix = torch.gather(
         f_proj, 1, hit_img2[..., None].expand(F, k_hit, 2)
     ).reshape(-1, 2)                                           # (H, 2)
     hit_cell = which_cell(hit_pix, config.cell_size)           # (H, 2)
-    offsets = torch.tensor(_OFFSETS, dtype=torch.int32, device=dev)
-    cand_cell = hit_cell[:, None, :] + offsets[None]           # (H, 4, 2)
+    cand_cell = hit_cell[:, None, :] + _diagonal_offsets(dev)[None]  # (H, 4, 2)
     img_ids = hit_img[:, None].expand(hit_cap, 4)
     vacant = is_vacant(occupancy, img_ids, cand_cell)
     cand_ok = hit_valid[:, None] & vacant
@@ -125,7 +165,7 @@ def expansion_round(
     n_flat = hit_cap * 4
     cx, cy = occupancy.shape[1], occupancy.shape[2]
     cell_flat = cand_cell.reshape(-1, 2)
-    img_flat = hit_img.repeat_interleave(4).long()
+    img_flat = hit_img[:, None].expand(hit_cap, 4).reshape(-1).long()
     lin_all = (
         img_flat * cx + torch.clamp(cell_flat[:, 0], 0, cx - 1)
     ) * cy + torch.clamp(cell_flat[:, 1], 0, cy - 1)
@@ -140,7 +180,7 @@ def expansion_round(
     )
     flat_ok = flat_ok & (first_at_cell[lin_all] == idx_all)
 
-    sel = _nonzero_static(flat_ok, round_capacity, n_flat - 1)
+    sel = ordered_compact(flat_ok, round_capacity, n_flat - 1)
     sel_valid = flat_ok[sel]
     n_candidates = flat_ok.sum()
 
@@ -188,7 +228,7 @@ def expansion_round(
         img_l * cx + torch.clamp(cell[:, 0], 0, cx - 1)
     ) * cy + torch.clamp(cell[:, 1], 0, cy - 1)
     idx = torch.arange(round_capacity, dtype=torch.int32, device=dev)
-    step = torch.tensor(1e-7, dtype=torch.float32, device=dev)
+    step = torch.full((), 1e-7, dtype=torch.float32, device=dev)
     claim_key = torch.where(
         accept, score - idx.to(torch.float32) * step,
         torch.full_like(score, -float("inf")),

@@ -19,9 +19,18 @@ an uninterrupted one.  With ``MvsConfig.enable_outlier_filter`` the
 accumulated cloud is re-scored in one sweep (K2's largest launch) and
 filtered on the device (``mvs/filter.py``).
 
-``MvsConfig.overlap_seed_fetch`` and ``rounds_per_call`` are scheduling
-knobs of the JAX package (hiding a remote link's fetch latency) whose output
-is identical either way; they are read nowhere here.  ``shape_buckets`` pads
+The host loop is the JAX package's, letter for letter.  A round issues
+no host read (``mvs/expand.py``), and each chunk's payload is copied to
+pinned host memory as soon as the chunk is enqueued, with an event behind
+it: the host enqueues the next chunk first and then waits on this one's
+event, so the device runs ahead of the host's unpacking (dispatch-ahead,
+only where the next chunk is certainly the one the serial loop would run:
+no backlog merge pending, neither budget reachable, no checkpoint due).
+``MvsConfig.rounds_per_call`` rounds go in one chunk, with the backlog
+merged only between chunks, so with a backlog it changes the cloud, as it
+does in ``sfm_tpu``.  ``overlap_seed_fetch`` enqueues round 1 before the
+seed payload is read.  A chunk enqueued ahead of one that ends the stage
+runs and is never read.  ``shape_buckets`` pads
 nothing the stage computes on: it only sets the width of the image axis in
 the state file, which ``sfm_tpu`` pads to ``bucket_images(n)`` when it is
 on (``_to_state_width``, ``_from_state_width``).
@@ -46,7 +55,7 @@ from sfm_tpu_torch.config import (
 from sfm_tpu_torch.io.calib import Calibration
 from sfm_tpu_torch.io.images import _cache_key, device_gray
 from sfm_tpu_torch.mvs.cells import grid_shape, make_occupancy
-from sfm_tpu_torch.mvs.expand import _nonzero_static, expansion_round
+from sfm_tpu_torch.mvs.expand import expansion_round, ordered_compact
 from sfm_tpu_torch.mvs.filter import filter_outliers_device
 from sfm_tpu_torch.mvs.photoconsistency import (
     photo_consistency,
@@ -93,6 +102,28 @@ def _payload_refs(ph_rows, n_images: int) -> np.ndarray:
     return np.clip(ph_rows[:, 9].astype(np.int32), 0, n_images - 1)
 
 
+class _HostCopy:
+    """A payload's copy to the host, enqueued when this is made (on the
+    current stream of the tensor's device, into pinned memory, with an
+    event behind it) and waited for only in ``numpy()``.  A CPU tensor is
+    its own copy."""
+
+    def __init__(self, t: torch.Tensor):
+        self.event = None
+        if not t.is_cuda:
+            self.host = t
+            return
+        self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        self.host.copy_(t, non_blocking=True)
+        self.event = torch.cuda.Event()
+        self.event.record(torch.cuda.current_stream(t.device))
+
+    def numpy(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
 def _pad_rows(v, rows: int):
     return torch.cat([v, v.new_zeros((rows - v.shape[0], *v.shape[1:]))])
 
@@ -133,7 +164,7 @@ def _device_split_merge(fr, backlog, cap: int, b_cap: int):
     if total < cap + b_cap:
         cat = {k: _pad_rows(v, cap + b_cap) for k, v in cat.items()}
         total = cap + b_cap
-    sel = _nonzero_static(cat["valid"], total, total - 1)
+    sel = ordered_compact(cat["valid"], total, total - 1)
     count = cat["valid"].sum()
     ok = torch.arange(total, device=sel.device) < count
     front = {k: cat[k][sel[:cap]] for k in _FRONTIER_KEYS}
@@ -371,7 +402,29 @@ def dense_reconstruction(
         all_ref = [state["acc_ref"]]
         metrics.record("mvs_num_seeds", n_seeds)
         metrics.record("mvs_resumed_at_round", rounds)
-    else:
+    # config.rounds_per_call rounds go in one chunk: enqueued back to back
+    # with no host read and no backlog merge between them (mvs/expand.py).
+    chunk = max(config.rounds_per_call, 1)
+
+    def dispatch():
+        """Enqueue the next chunk and its payload's copy to the host."""
+        nonlocal frontier, occupancy
+        frontier, occupancy, packed = expansion_round(
+            *shards, centers_cam, occupancy,
+            frontier["c"], frontier["n"], frontier["vis"],
+            frontier["proj"], frontier["valid"],
+            knobs, bound, cap, scale, kernels=kernels, mesh=mesh,
+            rounds_per_call=chunk,
+        )
+        return _HostCopy(packed)
+
+    # A fresh split already holds the OLDEST `cap` valid seeds, so the
+    # first round runs without a merge (FIFO order).  A resumed frontier is
+    # a round's accepted output (the newest), so there the merge before the
+    # first round is the FIFO order.
+    skip_first_merge = not resumed
+    pending = None  # an enqueued chunk whose payload is not read yet
+    if not resumed:
         with timers.stage("seed"):
             track_id, ref_obs, other_obs = build_seed_candidates(
                 recon.track_offsets, recon.track_obs
@@ -382,16 +435,29 @@ def dense_reconstruction(
                 dev(other_obs, torch.int32),
                 recon.num_tracks, occupancy, knobs, bound, kernels=kernels,
             )
-            # ONE device->host copy for the whole seed stage; colors are
-            # sampled on the host from the original images.
-            sp = seed_packed.cpu().numpy()
+            # ONE device->host copy for the whole seed stage, enqueued
+            # before round 1 so that round 1 does not hold it up.
+            seed_copy = _HostCopy(seed_packed)
+        frontier, backlog = _split_frontier(seeds, cap)
+        # Enqueue round 1 before the seed payload is read: it never needs
+        # a merge, and the budget loop certainly runs it (n_seeds <=
+        # num_tracks < max_patches).
+        if (
+            config.overlap_seed_fetch
+            and config.max_rounds > 0
+            and recon.num_tracks < config.max_patches
+        ):
+            pending = dispatch()
+            skip_first_merge = False
+        with timers.stage("seed"):
+            # Colors are sampled on the host from the original images.
+            sp = seed_copy.numpy()
             seed_valid, s_c, s_n, s_score, s_color = unpack_patch_payload(
                 sp, images
             )
             n_seeds = int(seed_valid.sum())
             metrics.record("mvs_num_seeds", n_seeds)
 
-        frontier, backlog = _split_frontier(seeds, cap)
         total = n_seeds
         rounds = 0
         dropped_candidates = 0
@@ -440,54 +506,73 @@ def dense_reconstruction(
     # Acceptance funnel, summed over rounds from the payload's tail row:
     # [scored, ray+finite, +coplanar+near, +NCC views, post-dedup accepts].
     funnel = np.zeros(5, np.int64)
-    # A fresh split already holds the OLDEST `cap` valid seeds, so the
-    # first round runs without a merge (FIFO order).  A resumed frontier is
-    # a round's accepted output (the newest), so there the merge before the
-    # first round is the FIFO order.
-    skip_first_merge = not resumed
     with timers.stage("expand"):
         while rounds < config.max_rounds and total < config.max_patches:
-            if bl_count and not skip_first_merge:
-                t0 = time.perf_counter()
-                frontier, backlog = _merge_backlog(frontier, backlog, cap)
-                backlog_merge_s += time.perf_counter() - t0
-                backlog_rounds += 1
-                # The merge folds bl_count backlog rows + fr_valid frontier
-                # rows into the next frontier (capped at `cap`); the rest is
-                # the new backlog.
-                pending_rows = bl_count + fr_valid
-                bl_count = max(0, pending_rows - cap)
-                fr_valid = min(pending_rows, cap)
-                if bl_count == 0:
-                    backlog = None
-            skip_first_merge = False
-            frontier, occupancy, packed = expansion_round(
-                *shards, centers_cam, occupancy,
-                frontier["c"], frontier["n"], frontier["vis"],
-                frontier["proj"], frontier["valid"],
-                knobs, bound, cap, scale, kernels=kernels, mesh=mesh,
-            )
-            # ONE small copy per round; the frontier stays on the device.
-            ph = packed.cpu().numpy()
-            acc_valid, a_c, a_n, a_score, a_color = unpack_patch_payload(
-                ph[:cap], images
-            )
-            n_acc = int(acc_valid.sum())
-            fr_valid = n_acc
-            dropped_candidates += max(0, int(ph[cap, 0]) - cap)
-            hits_over_k += int(ph[cap, 1])
-            funnel += ph[cap, 2:7].astype(np.int64)
-            rounds += 1
-            # Frontier dry: deferred patches (if any) refill it at the next
-            # merge, so stop only when the backlog is empty too.
-            stop = n_acc == 0 and bl_count == 0
-            if n_acc:
+            if pending is None:
+                if bl_count and not skip_first_merge:
+                    # A device-side merge: the time is its issue cost.
+                    t0 = time.perf_counter()
+                    frontier, backlog = _merge_backlog(frontier, backlog, cap)
+                    backlog_merge_s += time.perf_counter() - t0
+                    backlog_rounds += 1
+                    # The merge folds bl_count backlog rows + fr_valid
+                    # frontier rows into the next frontier (capped at
+                    # `cap`); the rest is the new backlog.
+                    pending_rows = bl_count + fr_valid
+                    bl_count = max(0, pending_rows - cap)
+                    fr_valid = min(pending_rows, cap)
+                    if bl_count == 0:
+                        backlog = None
+                skip_first_merge = False
+                payload = dispatch()
+            else:
+                payload, pending = pending, None
+            # Enqueue the NEXT chunk before this one's payload is read,
+            # only where it is certainly the chunk the serial loop would
+            # run: no backlog merge pending, neither budget reachable even
+            # if every slot accepts (after this chunk rounds' = rounds +
+            # chunk, total' <= total + chunk * cap), and no checkpoint due
+            # (its state must match the counters).
+            if (
+                not bl_count
+                and rounds + chunk < config.max_rounds
+                and total + chunk * cap < config.max_patches
+                and not (
+                    checkpoint_dir
+                    and rounds + 2 * chunk - last_ckpt_rounds
+                    >= checkpoint_every
+                )
+            ):
+                pending = dispatch()
+            # ONE small copy per chunk; the frontier stays on the device.
+            ph = payload.numpy().reshape(chunk, cap + 1, 11)
+            stop = False
+            for r in range(chunk):
+                acc_valid, a_c, a_n, a_score, a_color = unpack_patch_payload(
+                    ph[r, :cap], images
+                )
+                n_acc = int(acc_valid.sum())
+                fr_valid = n_acc
+                dropped_candidates += max(0, int(ph[r, cap, 0]) - cap)
+                hits_over_k += int(ph[r, cap, 1])
+                funnel += ph[r, cap, 2:7].astype(np.int64)
+                rounds += 1
+                if n_acc == 0:
+                    # Frontier dry: deferred patches (if any) refill it at
+                    # the next merge, so stop only when the backlog is
+                    # empty too.  The chunk's later rounds accept nothing.
+                    stop = bl_count == 0
+                    break
                 all_c.append(a_c[acc_valid])
                 all_n.append(a_n[acc_valid])
                 all_score.append(a_score[acc_valid])
                 all_color.append(a_color[acc_valid])
-                all_ref.append(_payload_refs(ph[:cap][acc_valid], n))
+                all_ref.append(_payload_refs(ph[r, :cap][acc_valid], n))
                 total += n_acc
+                # The budgets hold mid-chunk too.
+                if rounds >= config.max_rounds or total >= config.max_patches:
+                    stop = True
+                    break
             if checkpoint_dir and rounds - last_ckpt_rounds >= checkpoint_every:
                 # Every process of a group mesh holds this state: process 0
                 # writes it, and the others wait until the file is whole.

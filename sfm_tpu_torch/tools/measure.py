@@ -6,8 +6,10 @@ over the float32 peak (none of the kernels uses the tensor cores).
 ``harris_bound`` and ``gather_bound`` count those bytes and operations for
 K1 (``ops/harris.py``) and K2 / K3 (``ops/gather.py``,
 ``ops/gather_tile.py``) from the shapes of a call.  ``kernel_only_ms``
-reads a kernel's own device time under torch.profiler.  ``chip_smoke.py``
-and ``tools/stress_scale.py`` report with these, so both count alike.
+reads a kernel's own device time under torch.profiler, through
+``profiled``, which takes a session again where the profiler lost its
+events.  ``chip_smoke.py`` and ``tools/stress_scale.py`` report with
+these, so both count alike.
 """
 
 from __future__ import annotations
@@ -54,33 +56,66 @@ def kernel_named(name, base):
     return re.search(rf"\b{base}\b", name) is not None
 
 
+def profiled(body, accept, sessions=8, log=print, what="profiler session"):
+    """Run ``body()`` under torch.profiler and return (its result, the
+    device kernels it launched, the profile) from the first session in
+    which ``accept(result, kernels)`` holds.  A session opens with ten
+    marker kernels (``torch.cuda._sleep``'s ``spin_kernel``, which nothing
+    else launches) and a sync, and ends in a sync, so its device events
+    apart from the markers are the body's, told apart by name and not by
+    timestamp.  The profiler now and then loses a session's events, all
+    of them at times: a session that fails ``accept`` is logged and taken
+    again after a pause that doubles each time (10 ms first), up to
+    ``sessions``.  Raises RuntimeError, naming the device kernels the last
+    session saw, when none holds."""
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    pause = 0.01
+    for attempt in range(1, sessions + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+            result = body()
+            torch.cuda.synchronize()
+        device = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = [e for e in device if not kernel_named(e.name, "spin_kernel")]
+        if accept(result, kernels):
+            return result, kernels, prof
+        log(f"{what}: session {attempt} of {sessions} not accepted "
+            f"({len(device) - len(kernels)} of 10 markers and {len(kernels)} "
+            f"other device kernels seen); again")
+        time.sleep(pause)
+        pause *= 2
+    raise RuntimeError(f"check failed: {what}: no profiler session of "
+                       f"{sessions} accepted; the last saw "
+                       f"{sorted({e.name[:80] for e in kernels})}")
+
+
 def kernel_only_ms(fn, name_part, calls=20, log=print):
     """Device time per call of the kernels named ``name_part`` when ``fn``
     runs, under torch.profiler: the kernel alone, apart from the other
-    launches of its wrapper.  Raises RuntimeError when three profiler
-    sessions each lose more than half of the kernels."""
+    launches of its wrapper.  A session that sees fewer than half the
+    calls' kernels, or more, is taken again (``profiled``)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    marker = torch.empty(1024, device="cuda")
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                marker.fill_(0.0)
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and kernel_named(e.name, name_part)]
-        # The profiler may lose the first events of a session (hence the
-        # fills that open it), now and then all of them: average those
-        # seen, or profile again.
-        if calls // 2 <= len(us) <= calls:
-            return sum(us) / 1e3 / len(us)
-        log(f"{name_part}: {len(us)} kernels seen in {calls} calls; again")
-    raise RuntimeError(f"check failed: {name_part}: {len(us)} kernels seen "
-                       f"in {calls} calls")
+
+    def body():
+        for _ in range(calls):
+            fn()
+
+    def named(kernels):
+        return [e for e in kernels if kernel_named(e.name, name_part)]
+
+    _, kernels, _ = profiled(
+        body, lambda _, kernels: calls // 2 <= len(named(kernels)) <= calls,
+        log=log, what=f"{name_part} x {calls}")
+    us = [e.time_range.elapsed_us() for e in named(kernels)]
+    return sum(us) / 1e3 / len(us)

@@ -261,7 +261,7 @@ def test_bundle_adjust_matches_jax(sphere_sparse):
                    track_offsets=r.track_offsets, track_obs=r.track_obs)
     jrec, jinfo = j_bundle_adjust(jrec, JBaConfig(dtype="float64"))
     rec, info = bundle_adjust(want_recon, BaConfig(dtype="float64"), device="cpu")
-    assert set(info) == set(jinfo) - {"finalize"}
+    assert set(info) == set(jinfo)
     assert info["camera_solver"] == jinfo["camera_solver"] == "frozen"
     for k in ("num_observations", "num_points", "num_cameras",
               "refined_cameras", "iterations"):
@@ -295,7 +295,7 @@ def test_bundle_adjust_refine_cameras_matches_jax(sphere_sparse, max_cams, solve
         sparse_from_jax(r), BaConfig(dtype="float64", refine_cameras=True,
                                      dense_schur_max_cams=max_cams), device="cpu")
     # The port adds the counts of its dense gate (ba.run.dense_gate).
-    assert set(info) - set(GATE_KEYS) == set(jinfo) - {"finalize"}
+    assert set(info) - set(GATE_KEYS) == set(jinfo)
     assert info["ba_dense_schur_decided_by"] == (
         "dense" if solver == "dense_schur" else "max_cams")
     assert info["camera_solver"] == jinfo["camera_solver"] == solver

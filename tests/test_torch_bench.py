@@ -44,7 +44,8 @@ FRAMES = 12
 KEYS = {"metric", "value", "unit", "vs_baseline", "wall_s", "wall_median_s",
         "wall_mean_s", "wall_samples_s", "cold_s", "cold_attribution",
         "sfm_ba_s", "mvs_s", "tracks", "rms_reproj_px", "rms_reproj_refined_px",
-        "dense_points", "refine_cameras", "timers", "cold_timers", "kernels"}
+        "dense_points", "refine_cameras", "overlap", "timers", "cold_timers",
+        "kernels"}
 CPU_CONFIG = PipelineConfig(ba=BaConfig(dtype="float64"), mvs=MvsConfig(),
                             runtime=RuntimeConfig(device="cpu"))
 
@@ -130,7 +131,7 @@ def test_run_pipeline_is_the_stages_called_directly(ring_dir, monkeypatch):
     assert t_sfm_ba > 0 and t_mvs > 0
     assert set(timers) == {"sfm", "ba", "mvs"}
     assert set(timers["sfm"]) == {"features", "pair_geometry", "tracks"}
-    assert set(timers["ba"]) == {"assemble", "solve"}
+    assert set(timers["ba"]) == {"assemble", "solve", "fetch"}
     assert {"seed", "expand"} <= set(timers["mvs"])
 
 
@@ -157,6 +158,7 @@ def test_main_prints_one_line_with_every_key(main_line, port_run):
     assert r["wall_s"] == r["wall_median_s"] == r["wall_mean_s"] == r["wall_samples_s"][0]
     assert r["value"] == pytest.approx(FRAMES / r["wall_s"])
     assert r["refine_cameras"] is False
+    assert r["overlap"] == {"ba_defer_fetch": True, "seed_fetch": True}
     attr = r["cold_attribution"]
     assert set(attr) == {"cuda_init_s", "build_s", "load_s", "residual_s"}
     assert attr["cuda_init_s"] is None and attr["load_s"] > 0
@@ -170,7 +172,8 @@ def test_main_prints_one_line_with_every_key(main_line, port_run):
     assert r["mvs_s"] > 0 and r["sfm_ba_s"] > 0
 
 
-@pytest.mark.parametrize("flag", ["--refine_cameras", "--skip-mvs"])
+@pytest.mark.parametrize("flag", ["--refine_cameras", "--skip-mvs",
+                                  "--no-defer-fetch", "--no-seed-overlap"])
 def test_main_flags(ring_dir, main_line, flag):
     rc, lines = bench_line(["--data", ring_dir, "--device", "cpu", "--warm",
                             "1", "--no-kernels", flag])
@@ -185,12 +188,20 @@ def test_main_flags(ring_dir, main_line, flag):
         # Joint BA lowers the rms at its own cameras below the points-only
         # optimum, which is measured at the calibration's.
         assert r["rms_reproj_refined_px"] < base["rms_reproj_refined_px"]
-    else:
+    elif flag == "--skip-mvs":
         assert r["refine_cameras"] is False
         assert r["dense_points"] == 0 and r["mvs_s"] == 0
         assert "mvs" not in r["timers"]
         assert "+MVS" not in r["metric"]
         assert r["rms_reproj_px"] == base["rms_reproj_px"]
+    else:
+        # bench.py's overlap switches move when the host reads, not what
+        # it reads: the line's outputs are the default run's.
+        assert r["overlap"] == {"ba_defer_fetch": flag != "--no-defer-fetch",
+                                "seed_fetch": flag != "--no-seed-overlap"}
+        for k in ("rms_reproj_px", "rms_reproj_refined_px", "dense_points"):
+            assert r[k] == base[k], k
+        assert set(r["timers"]["ba"]) == {"assemble", "solve", "fetch"}
 
 
 def test_cuda_without_a_gpu_exits_1(ring_dir, capsys):

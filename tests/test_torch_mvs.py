@@ -52,7 +52,7 @@ from sfm_tpu_torch.io import read_ply
 from sfm_tpu_torch.io.images import device_gray, gray_tensor
 from sfm_tpu_torch.mvs import cells, dense_reconstruction
 from sfm_tpu_torch.mvs import pipeline as t_pipeline
-from sfm_tpu_torch.mvs.expand import _nonzero_static, expansion_round
+from sfm_tpu_torch.mvs.expand import expansion_round, ordered_compact
 from sfm_tpu_torch.mvs.photoconsistency import (
     _top_k,
     pack_patch_payload,
@@ -141,7 +141,7 @@ def test_top_k_and_nonzero_static_match_jax():
         want = np.asarray(jnp.nonzero(jnp.asarray(flags), size=size,
                                       fill_value=299)[0])
         np.testing.assert_array_equal(
-            _nonzero_static(torch.from_numpy(flags), size, 299).numpy(), want)
+            ordered_compact(torch.from_numpy(flags), size, 299).numpy(), want)
 
 
 def jax_top_k(x, k):
