@@ -93,6 +93,8 @@ def run_pipeline(images, calib, config, mvs: bool, scale: float,
     _sync(device)
     t0 = time.perf_counter()
     recon = structure_from_motion(images, calib, config)
+    # The trace's root spans now are SfM's stages; BA and MVS add theirs.
+    sfm_timers = recon.timers.view("").times
     recon, info = bundle_adjust(recon, config.ba, device=device,
                                 defer_fetch=defer)
     _sync(device)
@@ -110,7 +112,7 @@ def run_pipeline(images, calib, config, mvs: bool, scale: float,
         t_mvs = time.perf_counter() - t1
         dense_points = dense.num_points
         timers["mvs"] = dict(dense.timers.times)
-    timers = {"sfm": dict(recon.timers.times), "ba": dict(info["timers"]),
+    timers = {"sfm": sfm_timers, "ba": dict(info["timers"]),
               **timers}
     return recon, t_sfm_ba, t_mvs, dense_points, timers, info
 

@@ -103,87 +103,98 @@ def bundle_adjust(
     refined cameras come back as ``info["cams11"]`` ((N, 12) camera
     vectors, the JAX package's key); ``recon.calib`` stays the calibration,
     and ``ba_rms_reproj_after_px`` is then measured against it.
+
+    The call is the span ``ba`` of ``recon.timers`` (a trace of its own
+    where that is None), with ``ba.assemble``, ``ba.solve`` (and its
+    ``ba.solve.wait``) and ``ba.fetch``; ``info["timers"]`` is the live
+    view of ``ba``'s children (``assemble``, ``solve``, ``fetch``).
     """
-    timers = StageTimer()
+    timers = recon.timers if recon.timers is not None else StageTimer()
     dtype = torch.float64 if config.dtype == "float64" else torch.float32
     device = mesh.lead if mesh is not None else torch.device(device)
-    with timers.stage("assemble"):
-        problem = build_problem(
-            recon.calib, recon.world, recon.track_offsets, recon.track_obs,
-            dtype=dtype, device=device,
-        )
-    if config.dense_schur_max_span != BaConfig().dense_schur_max_span:
-        warnings.warn(
-            "BaConfig.dense_schur_max_span is deprecated and has no effect "
-            "(the dense-Schur assembly does not depend on track length); "
-            "use dense_schur_max_cams / dense_schur_max_bytes to steer the "
-            "solver choice",
-            DeprecationWarning,
-            stacklevel=2,
-        )
-    gate = dense_gate(recon, config)
-    pair_span = int(gate["ba_dense_schur_decided_by"] == "dense")
-    with timers.stage("solve"):
-        solve = dict(
-            max_iterations=config.max_iterations,
-            ftol=config.ftol,
-            init_lambda=config.init_lambda,
-            lambda_up=config.lambda_up,
-            lambda_down=config.lambda_down,
-            optimize_cameras=config.refine_cameras,
-            pair_span=pair_span,
-        )
+    with timers.stage("ba") as path:
+        with timers.stage("assemble"):
+            problem = build_problem(
+                recon.calib, recon.world, recon.track_offsets, recon.track_obs,
+                dtype=dtype, device=device,
+            )
+        if config.dense_schur_max_span != BaConfig().dense_schur_max_span:
+            warnings.warn(
+                "BaConfig.dense_schur_max_span is deprecated and has no effect "
+                "(the dense-Schur assembly does not depend on track length); "
+                "use dense_schur_max_cams / dense_schur_max_bytes to steer the "
+                "solver choice",
+                DeprecationWarning,
+                stacklevel=2,
+            )
+        gate = dense_gate(recon, config)
+        pair_span = int(gate["ba_dense_schur_decided_by"] == "dense")
+        with timers.stage("solve"):
+            solve = dict(
+                max_iterations=config.max_iterations,
+                ftol=config.ftol,
+                init_lambda=config.init_lambda,
+                lambda_up=config.lambda_up,
+                lambda_down=config.lambda_down,
+                optimize_cameras=config.refine_cameras,
+                pair_span=pair_span,
+            )
+            if mesh is not None:
+                cams, points, cost, iters = solve_lm_sharded(problem, mesh,
+                                                             **solve)
+            else:
+                cams, points, cost, iters = solve_lm(problem, **solve)
+        n_obs = problem.num_observations
+        info = {
+            "num_observations": n_obs,
+            "num_points": recon.num_tracks,
+            "num_cameras": recon.calib.num_views,
+            "refined_cameras": bool(config.refine_cameras),
+            "camera_solver": (
+                "dense_schur" if pair_span
+                else ("pcg" if config.refine_cameras else "frozen")
+            ),
+            "timers": timers.view(path),
+        }
+        if config.refine_cameras:
+            info.update(gate)
+            for k, v in gate.items():
+                recon.metrics.record(k, v)
         if mesh is not None:
-            cams, points, cost, iters = solve_lm_sharded(problem, mesh, **solve)
-        else:
-            cams, points, cost, iters = solve_lm(problem, **solve)
-    n_obs = problem.num_observations
-    info = {
-        "num_observations": n_obs,
-        "num_points": recon.num_tracks,
-        "num_cameras": recon.calib.num_views,
-        "refined_cameras": bool(config.refine_cameras),
-        "camera_solver": (
-            "dense_schur" if pair_span
-            else ("pcg" if config.refine_cameras else "frozen")
-        ),
-        "timers": timers.times,
-    }
-    if config.refine_cameras:
-        info.update(gate)
-        for k, v in gate.items():
-            recon.metrics.record(k, v)
-    if mesh is not None:
-        recon.metrics.record("ba_mesh_devices", mesh.size)
+            recon.metrics.record("ba_mesh_devices", mesh.size)
 
     def finalize():
         """Copy the solution to the host and publish it into ``recon`` and
         ``info`` (idempotent)."""
         if "final_cost" in info:
             return recon, info
-        with timers.stage("fetch"):
-            world = points.cpu().numpy()
-            final_cost = float(cost)
-            info["iterations"] = int(iters)
-            if config.refine_cameras:
-                # Without the problem's padded camera rows.
-                info["cams11"] = cams[: recon.calib.num_views].cpu().numpy()
-        recon.world = world[: recon.num_tracks].astype(np.float64)
-        info["final_cost"] = final_cost
-        # The optimum's own rms, against the REFINED parameter set
-        # (cost = 0.5 * sum r^2 over 2 * n_obs components).
-        info["rms_reproj_refined_px"] = float(
-            np.sqrt(2.0 * final_cost / max(n_obs, 1)))
-        recon.metrics.record("ba_final_cost", info["final_cost"])
-        recon.metrics.record("ba_iterations", info["iterations"])
-        # With frozen cameras the refined-parameter rms IS the rms against
-        # the stored calibration; the joint solve's cameras differ from it,
-        # so there it is computed against the calibration.
-        recon.metrics.record(
-            "ba_rms_reproj_after_px",
-            info["rms_reproj_refined_px"] if not config.refine_cameras
-            else recon.rms_reprojection_error(),
-        )
+        # Resumes the call's span, so ``ba`` holds a deferred finalize too.
+        with timers.at(path):
+            with timers.stage("fetch"):
+                world = points.cpu().numpy()
+                final_cost = float(cost)
+                info["iterations"] = int(iters)
+                if config.refine_cameras:
+                    # Without the problem's padded camera rows.
+                    info["cams11"] = (
+                        cams[: recon.calib.num_views].cpu().numpy())
+            recon.world = world[: recon.num_tracks].astype(np.float64)
+            info["final_cost"] = final_cost
+            # The optimum's own rms, against the REFINED parameter set
+            # (cost = 0.5 * sum r^2 over 2 * n_obs components).
+            info["rms_reproj_refined_px"] = float(
+                np.sqrt(2.0 * final_cost / max(n_obs, 1)))
+            recon.metrics.record("ba_final_cost", info["final_cost"])
+            recon.metrics.record("ba_iterations", info["iterations"])
+            # With frozen cameras the refined-parameter rms IS the rms
+            # against the stored calibration; the joint solve's cameras
+            # differ from it, so there it is computed against the
+            # calibration.
+            recon.metrics.record(
+                "ba_rms_reproj_after_px",
+                info["rms_reproj_refined_px"] if not config.refine_cameras
+                else recon.rms_reprojection_error(),
+            )
         return recon, info
 
     info["finalize"] = finalize

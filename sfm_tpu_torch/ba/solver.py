@@ -36,6 +36,7 @@ from sfm_tpu_torch.ba.model import jacobian_blocks, total_cost
 from sfm_tpu_torch.ba.problem import BAProblem
 from sfm_tpu_torch.geometry.linalg3 import inv3
 from sfm_tpu_torch.parallel.mesh import DataMesh
+from sfm_tpu_torch.utils.metrics import span
 
 _OBS_FIELDS = ("cam_idx", "point_idx", "obs_2d", "mask")
 
@@ -291,7 +292,8 @@ def solve_lm(
 ):
     """Run LM; returns (cams, points, final_cost 0-dim tensor, iterations
     int).  The loop of ``sfm_tpu.ba.solver._lm_impl``, with one host sync
-    per iteration (accept and the stop test together; the PCG camera solve
+    per iteration (accept and the stop test together, the span ``wait``
+    under the caller's open span: ``ba.solve.wait``; the PCG camera solve
     adds one per CG iteration).
 
     ``optimize_cameras=False`` freezes the cameras in the solve itself (no
@@ -378,7 +380,8 @@ def solve_lm(
         lam = torch.where(accept, lam * lambda_down, lam * lambda_up)
         cost = torch.where(accept, new_cost, cost)
         iteration += 1
-        accepted, done = torch.stack([accept, stop]).tolist()
+        with span("wait"):  # the host blocks on the device here
+            accepted, done = torch.stack([accept, stop]).tolist()
         if accepted:
             cams, cams_r = new_cams, new_cr
             points, points_r = new_points, new_pr

@@ -17,7 +17,9 @@ C(n, 2) image pairs.  ``--plot`` writes ``sparse_before_ba.png``,
 of the first three pairs (``debug_epipolar_{a}_{b}.png``); both need
 matplotlib (without it they exit 1).  ``--profile_dir DIR`` records the
 run with torch.profiler (host activity, and the GPU's on CUDA) and writes
-it as a Chrome trace, ``DIR/trace.json``.
+it as a Chrome trace, ``DIR/trace.json``, in which the program's spans
+(``utils/metrics.py``: ``sfm``, ``ba``, ``mvs`` here, the reconstruction's
+``features.gray`` ... ``mvs.expand.wait`` below them) are host ranges.
 
 Run: ``python -m sfm_tpu_torch.cli -img_p DIR -par_p DIR/x_par.txt -t png
 [--stages sfm,ba,mvs] [--device cuda] [--mesh_devices N]``.

@@ -39,7 +39,6 @@ on (``_to_state_width``, ``_from_state_width``).
 from __future__ import annotations
 
 import dataclasses
-import time
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -67,7 +66,7 @@ from sfm_tpu_torch.parallel.mesh import DataMesh
 from sfm_tpu_torch.sfm.pipeline import SparseReconstruction
 from sfm_tpu_torch.utils import checkpoint as ckpt
 from sfm_tpu_torch.utils.buckets import bucket_images
-from sfm_tpu_torch.utils.metrics import Metrics, StageTimer
+from sfm_tpu_torch.utils.metrics import Metrics, StageTimer, StageView, span
 
 # The expansion frontier consumes exactly these fields; seed dicts carry
 # extras (ref, score) that must not leak into backlog bookkeeping.
@@ -85,7 +84,7 @@ class DenseReconstruction:
     refs: np.ndarray      # (D,) int32 reference image per patch
     num_seeds: int
     metrics: Metrics = field(default_factory=Metrics)
-    timers: Optional[StageTimer] = None
+    timers: Optional[StageView] = None  # the stage's spans (``mvs.*``)
 
     @property
     def num_points(self) -> int:
@@ -329,8 +328,24 @@ def dense_reconstruction(
     load.  The stage is deterministic, so the resumed cloud is the
     uninterrupted run's, bit for bit.  Over a group mesh only process 0
     writes (and clears) the state file, and every process reads it.
+
+    The call is the span ``mvs`` of ``recon.timers`` (a trace of its own
+    where that is None), with ``mvs.seed``, ``mvs.expand`` (its
+    ``dispatch``, ``wait`` and ``merge``) and ``mvs.filter``;
+    ``DenseReconstruction.timers`` is the view of ``mvs``'s children.
     """
-    timers = StageTimer()
+    timers = recon.timers if recon.timers is not None else StageTimer()
+    with timers.stage("mvs") as path:
+        dense = _dense_reconstruction(
+            images, calib, recon, config, scale, mesh, checkpoint_dir,
+            checkpoint_every, device, kernels, timers)
+    dense.timers = timers.view(path)
+    return dense
+
+
+def _dense_reconstruction(images, calib, recon, config, scale, mesh,
+                          checkpoint_dir, checkpoint_every, device, kernels,
+                          timers):
     metrics = Metrics()
     n, h, w = images.shape[0], images.shape[1], images.shape[2]
     # The reference's 2-image carve-out (bound 2) is dead code, since the
@@ -409,14 +424,15 @@ def dense_reconstruction(
     def dispatch():
         """Enqueue the next chunk and its payload's copy to the host."""
         nonlocal frontier, occupancy
-        frontier, occupancy, packed = expansion_round(
-            *shards, centers_cam, occupancy,
-            frontier["c"], frontier["n"], frontier["vis"],
-            frontier["proj"], frontier["valid"],
-            knobs, bound, cap, scale, kernels=kernels, mesh=mesh,
-            rounds_per_call=chunk,
-        )
-        return _HostCopy(packed)
+        with span("dispatch"):
+            frontier, occupancy, packed = expansion_round(
+                *shards, centers_cam, occupancy,
+                frontier["c"], frontier["n"], frontier["vis"],
+                frontier["proj"], frontier["valid"],
+                knobs, bound, cap, scale, kernels=kernels, mesh=mesh,
+                rounds_per_call=chunk,
+            )
+            return _HostCopy(packed)
 
     # A fresh split already holds the OLDEST `cap` valid seeds, so the
     # first round runs without a merge (FIFO order).  A resumed frontier is
@@ -447,7 +463,8 @@ def dense_reconstruction(
             and config.max_rounds > 0
             and recon.num_tracks < config.max_patches
         ):
-            pending = dispatch()
+            with timers.stage("expand"):
+                pending = dispatch()
             skip_first_merge = False
         with timers.stage("seed"):
             # Colors are sampled on the host from the original images.
@@ -500,7 +517,6 @@ def dense_reconstruction(
         ckpt.save_mvs_state(checkpoint_dir, _to_state_width(st, n_state))
 
     last_ckpt_rounds = rounds
-    backlog_merge_s = 0.0
     backlog_rounds = 0
     hits_over_k = 0
     # Acceptance funnel, summed over rounds from the payload's tail row:
@@ -510,10 +526,10 @@ def dense_reconstruction(
         while rounds < config.max_rounds and total < config.max_patches:
             if pending is None:
                 if bl_count and not skip_first_merge:
-                    # A device-side merge: the time is its issue cost.
-                    t0 = time.perf_counter()
-                    frontier, backlog = _merge_backlog(frontier, backlog, cap)
-                    backlog_merge_s += time.perf_counter() - t0
+                    # A device-side merge: the span is its issue cost.
+                    with span("merge"):
+                        frontier, backlog = _merge_backlog(frontier, backlog,
+                                                           cap)
                     backlog_rounds += 1
                     # The merge folds bl_count backlog rows + fr_valid
                     # frontier rows into the next frontier (capped at
@@ -545,7 +561,8 @@ def dense_reconstruction(
             ):
                 pending = dispatch()
             # ONE small copy per chunk; the frontier stays on the device.
-            ph = payload.numpy().reshape(chunk, cap + 1, 11)
+            with span("wait"):
+                ph = payload.numpy().reshape(chunk, cap + 1, 11)
             stop = False
             for r in range(chunk):
                 acc_valid, a_c, a_n, a_score, a_color = unpack_patch_payload(
@@ -600,7 +617,6 @@ def dense_reconstruction(
         )
     if backlog_rounds:
         metrics.record("mvs_backlog_rounds", backlog_rounds)
-        metrics.record("mvs_backlog_merge_s", round(backlog_merge_s, 4))
     if bl_count:
         # Deferred patches still unexpanded when a budget ran out.
         metrics.record("mvs_backlog_remaining", bl_count)
@@ -639,5 +655,4 @@ def dense_reconstruction(
         refs=refs,
         num_seeds=n_seeds,
         metrics=metrics,
-        timers=timers,
     )

@@ -74,6 +74,7 @@ class SparseReconstruction:
     track_offsets: np.ndarray  # (T+1,) int64
     track_obs: np.ndarray      # (O, 3) int32 rows (image, x, y)
     metrics: Metrics = field(default_factory=Metrics)
+    # The reconstruction's trace: SfM's spans, then BA's and MVS's.
     timers: Optional[StageTimer] = None
     debug_pairs: Optional[dict] = None
 
@@ -280,7 +281,8 @@ def structure_from_motion(
     ib = torch.tensor([p[1] for p in pairs], dtype=torch.long, device=device)
 
     with timers.stage("features"):
-        gray = device_gray(images, device)
+        with timers.stage("gray"):
+            gray = device_gray(images, device)
         kernels = use_kernel(gray, config.runtime.kernels)
         pad = (-n) % mesh.size
         if pad:

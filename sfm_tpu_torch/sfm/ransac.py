@@ -18,14 +18,17 @@ from __future__ import annotations
 import torch
 
 from sfm_tpu_torch.geometry.epipolar import eight_point, sampson_distance
+from sfm_tpu_torch.utils.metrics import span
 
 
 def draw_uniforms(batch, num_hypotheses: int,
                   generator: torch.Generator) -> torch.Tensor:
     """(*batch, H*8) float64 uniform numbers from ``generator``, on the CPU
-    (so a seed gives the same hypotheses on any device)."""
-    return torch.rand((*batch, num_hypotheses * 8), generator=generator,
-                      dtype=torch.float64)
+    (so a seed gives the same hypotheses on any device); the span ``draw``
+    under the caller's open span (``pair_geometry.draw`` in SfM)."""
+    with span("draw"):
+        return torch.rand((*batch, num_hypotheses * 8), generator=generator,
+                          dtype=torch.float64)
 
 
 def samples_from_uniforms(valid: torch.Tensor, u: torch.Tensor) -> torch.Tensor:

@@ -168,6 +168,9 @@ def test_cli_profile_dir_writes_a_trace(dataset, tmp_path, capsys):
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert len(trace["traceEvents"]) > 100
     assert any(n.startswith("aten::") for n in names)
+    # The CLI's and the reconstruction's spans are host ranges of the trace.
+    assert {"sfm", "features", "features.gray", "pair_geometry",
+            "pair_geometry.draw", "tracks"} <= names
     assert os.path.exists(os.path.join(out, "sparse_points.ply"))
 
 
