@@ -15,7 +15,8 @@ CLI's rule).  Prints ONE JSON line:
 divides it by the reference's CPU rate in ``BASELINE_MEASURED.json``, which
 was measured on dinoRing, so it is null for a dataset by any other name.
 The gray stack is cached per process (``io.images.device_gray``): only the
-cold pass pays the host grayscale conversion and its upload.
+cold pass pays the grayscale conversion (K4 on a CUDA device, the host's
+elsewhere) and its upload.
 ``cold_s`` is the first pass with the build of the kernels and the track
 store in it, as ``bench.py``'s holds its compiles.  ``cold_attribution``
 names the parts: that build (``build_s``, near 0 when the libraries are

@@ -7,8 +7,11 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 It builds the CUDA kernels and the track store from the sources, holds
 each kernel against its plain PyTorch version at the shapes of the main
-path (K2 also at the centres of one expansion round and at non-finite
-centres, on the in-bounds limits, at M = 1, 7 and 163,843, at wid 0, 2 and
+path (K4, the grayscale conversion, against the host conversion over all
+2^24 RGB triples and on shapes and alignments off the main path, one
+device kernel a call, one launch in SfM and none in MVS; K2 also at the
+centres of one expansion round and at non-finite centres, on the
+in-bounds limits, at M = 1, 7 and 163,843, at wid 0, 2 and
 8 and on guarded and odd-width stacks, with its mask held to the plain
 ``_inbounds`` and one device kernel per call; K1 also on an odd width, on
 tiny images, on a 4-byte-aligned stack and on non-integer gray), drives the
@@ -190,6 +193,92 @@ def check_k1_shapes(dev):
         f"{int((diff > 0).sum())} of {diff.numel()} values differ, max "
         f"{rel:.3e} of max |R|")
     return {"nonint_rel_err": rel}
+
+
+def all_rgb_triples():
+    """Every (r, g, b) uint8 triple once, as one (1, 4096, 4096, 3) stack."""
+    import numpy as np
+
+    v = np.arange(1 << 24, dtype=np.uint32)
+    rgb = np.stack([(v >> 16) & 255, (v >> 8) & 255, v & 255], axis=-1)
+    return rgb.astype(np.uint8).reshape(1, 4096, 4096, 3)
+
+
+def host_gray(images):
+    """The host route's values: ``np.rint(to_gray(x)).astype(np.uint8)`` as
+    float32, what ``gray_tensor`` uploads and converts."""
+    import numpy as np
+
+    from sfm_tpu_torch.io.images import to_gray
+
+    return np.rint(to_gray(images)).astype(np.uint8).astype(np.float32)
+
+
+def check_k4(images):
+    """K4 bit-equal to the host conversion over all 2^24 RGB triples and on
+    the rendered stack ``images``, one launch a call.  Returns the uploaded
+    uint8 RGB of ``images`` on the card (phase 6 times K4 on it)."""
+    import numpy as np
+    import torch
+
+    from sfm_tpu_torch.ops.gray import rgb_to_gray
+
+    for what, x in (("all 2^24 RGB triples", all_rgb_triples()),
+                    (f"the rendered {images.shape} stack", images)):
+        before = rgb_to_gray.launches
+        got = rgb_to_gray(torch.from_numpy(x).cuda()).cpu().numpy()
+        check(rgb_to_gray.launches == before + 1, "K4 counted one launch")
+        want = host_gray(x)
+        bad = int((got.view(np.uint32) != want.view(np.uint32)).sum())
+        check(bad == 0, f"K4 on {what}: {bad} values differ from the host's")
+        log(f"K4: bit-equal to the host conversion on {what}")
+    return torch.from_numpy(images).cuda()
+
+
+def check_k4_shapes(dev):
+    """K4 off the main path, bit-equal to the host conversion: N = 1, odd H,
+    W = 1, 3 and 641, pixel counts that leave pixels after the last whole
+    512-pixel chunk (and fewer than 512 in all), a stack whose first byte
+    is not 16-byte aligned (the one-by-one route); and inputs refused before
+    any launch: non-contiguous, not uint8, wrongly shaped."""
+    import numpy as np
+    import torch
+
+    from sfm_tpu_torch.ops.gray import rgb_to_gray
+
+    rng = np.random.default_rng(4)
+    shapes = ((1, 480, 640), (2, 37, 201), (3, 7, 5), (1, 5, 1), (2, 9, 3),
+              (1, 33, 641), (1, 1, 1), (5, 1, 3))
+    for n, h, w in shapes:
+        x = rng.integers(0, 256, (n, h, w, 3), dtype=np.uint8)
+        got = rgb_to_gray(torch.from_numpy(x).to(dev)).cpu().numpy()
+        check(np.array_equal(got, host_gray(x)), f"K4 bit-equal at {(n, h, w)}")
+    n, h, w = 2, 48, 64
+    buf = torch.from_numpy(rng.integers(0, 256, n * h * w * 3 + 5,
+                                        dtype=np.uint8)).to(dev)
+    off = buf[5:].view(n, h, w, 3)
+    check(off.data_ptr() % 16 == 5, "the offset stack is not 16-byte aligned")
+    check(np.array_equal(rgb_to_gray(off).cpu().numpy(),
+                         host_gray(off.cpu().numpy())),
+          "K4 bit-equal on a stack that is not 16-byte aligned")
+    good = torch.zeros((2, 8, 8, 3), dtype=torch.uint8, device=dev)
+    before = rgb_to_gray.launches
+    for what, bad, err in (
+            ("non-contiguous", good[:, :, ::2], ValueError),
+            ("float32", good.float(), TypeError),
+            ("(N, H, W)", good[..., 0].contiguous(), TypeError),
+            ("(N, H, W, 4)", torch.zeros((2, 8, 8, 4), dtype=torch.uint8,
+                                         device=dev), TypeError)):
+        try:
+            rgb_to_gray(bad)
+        except err:
+            pass
+        else:
+            raise RuntimeError(f"check failed: K4 took a {what} input")
+    check(rgb_to_gray.launches == before, "a refused input launched K4")
+    log("K4: bit-equal at " + ", ".join("x".join(map(str, s)) for s in shapes)
+        + " and on a stack at byte offset 5; non-contiguous, float32 and "
+        "wrongly shaped inputs refused before any launch")
 
 
 def k2_inputs(gray, corners):
@@ -497,6 +586,23 @@ def cuda_ms(fn, reps=20, batch=10):
         b.record()
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b) / batch)
+    return statistics.median(times)
+
+
+def host_ms(fn, reps=7):
+    """Median milliseconds of ``reps`` calls of ``fn``, each on the host's
+    clock from a synced device to the sync after it (for calls whose work
+    is mostly on the host)."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
 
 
@@ -2389,8 +2495,11 @@ def main() -> int:
         sample_normalized_patches,
         sample_normalized_patches_sharded,
     )
+    from sfm_tpu_torch.ops.gray import rgb_to_gray
     from sfm_tpu_torch.ops.harris import _harris_math, harris_response
-    from sfm_tpu_torch.tools.measure import gather_bound, harris_bound, kernel_only_ms
+    from sfm_tpu_torch.tools.measure import (
+        gather_bound, gray_bound, harris_bound, kernel_only_ms,
+    )
     from sfm_tpu_torch.utils import build
 
     import numpy as np
@@ -2420,6 +2529,8 @@ def main() -> int:
     from sfm_tpu_torch.io.images import gray_tensor
 
     gray = gray_tensor(images, "cuda")
+    rgb = check_k4(images)
+    check_k4_shapes(gray.device)
     k1 = check_k1(gray)
     k1_shapes = check_k1_shapes(gray.device)
     gray_bf16 = gray.to(torch.bfloat16)
@@ -2431,8 +2542,10 @@ def main() -> int:
     run_sfm(images, calib, kernels=True)  # warm: allocator, cuBLAS, sort
     harris_response.launches = 0
     sample_normalized_patches.launches = 0
+    rgb_to_gray.launches = 0
     recon, wall = run_sfm(images, calib, kernels=True)
-    launches = {"harris_response": harris_response.launches,
+    launches = {"rgb_to_gray": rgb_to_gray.launches,
+                "harris_response": harris_response.launches,
                 "sample_normalized_patches": sample_normalized_patches.launches}
     log(f"launches in the timed SfM run: {launches}")
     for kname, cnt in launches.items():
@@ -2449,7 +2562,14 @@ def main() -> int:
     check(mv["mean_pair_reprojection_error_px"] < 0.3, "pair reprojection >= 0.3 px")
     check(med < 0.01 and p95 < 0.05, f"sphere bounds median {med} p95 {p95}")
     check(mv["track_store_backend"] == "native", "native track store")
+    check(launches["rgb_to_gray"] == 1 and mv["gray_route"] == "kernel",
+          f"SfM's gray: {launches['rgb_to_gray']} K4 launches, route "
+          f"{mv['gray_route']}")
+    rgb_to_gray.launches = 0
     plain_sfm, plain_wall_sfm = run_sfm(images, calib, kernels=False)
+    check(rgb_to_gray.launches == 0
+          and plain_sfm.metrics.values["gray_route"] == "host",
+          "SfM with kernels=False converted on the card")
     log(f"SfM (plain versions on the card): {plain_sfm.num_tracks} tracks, wall "
         f"{plain_wall_sfm:.4f} s; timers "
         + json.dumps({k: round(v, 4) for k, v in plain_sfm.timers.times.items()}))
@@ -2481,6 +2601,8 @@ def main() -> int:
     # --- 6. kernel times against the plain versions -------------------------
     (img_i, ctr_i), (img_f, ctr_f) = k2_in
     t = {
+        "k4": cuda_ms(lambda: rgb_to_gray(rgb)),
+        "k4_plain": host_ms(lambda: gray_tensor(images, "cuda")),
         "k1": cuda_ms(lambda: harris_response(gray, 0.04)),
         "k1_plain": cuda_ms(lambda: _harris_math(gray, 0.04)),
         "k2_int": cuda_ms(lambda: sample_normalized_patches(gray_bf16, img_i, ctr_i, WID)),
@@ -2488,8 +2610,13 @@ def main() -> int:
         "k2_frac": cuda_ms(lambda: sample_normalized_patches(gray_bf16, img_f, ctr_f, WID)),
         "k2_frac_plain": cuda_ms(lambda: _sample_plain(gray_bf16, img_f, ctr_f, WID)),
     }
-    log(f"kernel times, ms per call, median of 20 windows of 10 calls, on {smi}: "
+    log(f"kernel times, ms per call, median of 20 windows of 10 calls (k4_plain: "
+        f"the host route's wall, median of 7), on {smi}: "
         + json.dumps({k: round(v, 4) for k, v in t.items()}))
+    k4_calls = host_and_device(lambda: rgb_to_gray(rgb))
+    check(k4_calls["launches"] == 1, f"a K4 call is {k4_calls['launches']} "
+          f"device kernels ({k4_calls['kernels']})")
+    log("K4 call: " + json.dumps(k4_calls))
 
     # --- 7. K2 at one expansion round's centres, and non-finite ones -------
     k2_round = check_k2_mvs_round(gray, calib, recon)
@@ -2522,9 +2649,11 @@ def main() -> int:
     harris_response.launches = 0
     sample_normalized_patches.launches = 0
     sample_normalized_patches_sharded.launches = 0
+    rgb_to_gray.launches = 0
     dense, mvs_wall = run_mvs(images, recon, kernels=None)
     launches_mvs = sample_normalized_patches.launches
     check(harris_response.launches == 0, "MVS launched K1")
+    check(rgb_to_gray.launches == 0, "MVS launched K4 (its gray is cached)")
     check(sample_normalized_patches_sharded.launches == launches_mvs,
           "an MVS sweep bypassed K2s's launch step (a mesh of one shard)")
     mv = dense.metrics.values
@@ -2686,13 +2815,14 @@ def main() -> int:
     log("K3 kernel-only device ms by mode: "
         + json.dumps({k: round(v, 5) for k, v in k3_modes_kernel_only.items()}))
     kernel_only = {
+        "k4": kernel_only_ms(lambda: rgb_to_gray(rgb), "gray_kernel"),
         "k1": kernel_only_ms(lambda: harris_response(gray, 0.04), "harris_kernel"),
         "k2_int": kernel_only_ms(lambda: sample_normalized_patches(
             gray_bf16, img_i, ctr_i, WID), "gather_kernel"),
         "k2_frac": kernel_only_ms(lambda: sample_normalized_patches(
             gray_bf16, img_f, ctr_f, WID), "gather_kernel"),
     }
-    log("K1 / K2 kernel-only device ms: "
+    log("K4 / K1 / K2 kernel-only device ms: "
         + json.dumps({k: round(v, 5) for k, v in kernel_only.items()})
         + "; first designs: " + json.dumps(PARENT))
 
@@ -2834,6 +2964,14 @@ def main() -> int:
 
     n_px = gray.numel()
     kernels = [
+        {"name": "rgb_to_gray", "route": "cuda",
+         "source": "sfm_tpu_torch/csrc/gray.cu",
+         "replaces": "sfm_tpu_torch/io/images.py:gray_tensor (host)",
+         "launches": launches["rgb_to_gray"],
+         "device_kernels_per_call": k4_calls["launches"],
+         "max_abs_err": 0.0, "ms": t["k4"], "plain_ms": t["k4_plain"],
+         **gray_bound(n_px), "library_ms": None,
+         "kernel_only_ms": kernel_only["k4"], "shape": list(rgb.shape)},
         {"name": "harris_response", "route": "cuda",
          "source": "sfm_tpu_torch/csrc/harris.cu",
          "replaces": "sfm_tpu/ops/harris.py:79",

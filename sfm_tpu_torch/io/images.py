@@ -2,10 +2,19 @@
 
 ``load_images`` globs ``{dir}/*.{type}``, sorts, and stacks RGB uint8 (PIL
 is imported there only: the rest of the package runs without it).
-``gray_tensor`` converts: grayscale is computed and rounded to uint8 on the
-host, then converted to float32 on the device.  ``device_gray`` is the
-counterpart of ``sfm_tpu``'s: the same conversion, cached per process so
-the SfM and MVS stages share one conversion and one upload.
+Grayscale (BT.601, rounded to whole numbers, float32 on the device) is made
+by one of two routes with bit-equal results:
+
+- host: ``gray_tensor`` computes and rounds it on the host, uploads uint8
+  and converts to float32 on the device -- the route on a CPU device and
+  wherever ``kernels`` is False;
+- kernel: the uint8 RGB stack is uploaded as it is and kernel K4
+  (``ops/gray.py:rgb_to_gray``) converts it on the card -- the route on a
+  CUDA device where ``kernels`` is None or True.
+
+``device_gray`` is the counterpart of ``sfm_tpu``'s: it picks the route and
+caches the result per process, so the SfM and MVS stages share one
+conversion and one upload.
 """
 
 from __future__ import annotations
@@ -18,6 +27,9 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from sfm_tpu_torch.ops._launch import use_kernel_on
+from sfm_tpu_torch.ops.gray import rgb_to_gray
 
 
 def load_images(
@@ -56,11 +68,14 @@ def to_gray(images: np.ndarray) -> np.ndarray:
 
 
 def gray_tensor(images: np.ndarray, device) -> torch.Tensor:
-    """uint8 RGB (N, H, W, 3) -> float32 (N, H, W) on ``device``.
+    """uint8 RGB (N, H, W, 3) -> float32 (N, H, W) on ``device``: the host
+    route.
 
     Rounded to uint8 on the host (what the reference's cv2.cvtColor gives),
-    shipped as uint8 (3x less traffic than RGB) and converted there.  Every
-    value is an integer in 0..255, which keeps the Harris sums exact.
+    shipped as uint8 and converted there.  Every value is an integer in
+    0..255, which keeps the Harris sums exact.  ``device_gray`` takes this
+    route on a CPU device and with ``kernels=False``; on a CUDA device it
+    otherwise converts on the card, with the same result bit for bit.
     """
     gray_u8 = np.rint(to_gray(images)).astype(np.uint8)
     return torch.from_numpy(gray_u8).to(device).float()
@@ -82,8 +97,17 @@ def _cache_key(images: np.ndarray):
     )
 
 
-def device_gray(images: np.ndarray, device) -> torch.Tensor:
-    """``gray_tensor(images, device)``, computed once per process.
+def device_gray(images: np.ndarray, device, kernels=None,
+                metrics=None) -> torch.Tensor:
+    """Gray (N, H, W) float32 of ``images`` on ``device``, computed once per
+    process.
+
+    On a CUDA device, unless ``kernels`` is False, the uint8 RGB stack is
+    uploaded as it is and converted by kernel K4 (``rgb_to_gray``); on a
+    CPU device, or with ``kernels=False``, by the host route
+    (``gray_tensor``).  Both give the same values bit for bit, so they share
+    one cache entry.  With ``metrics``, records ``gray_route``: the route
+    that made the stack returned ("kernel" or "host").
 
     Keyed on the host array's identity and content (``_cache_key``) and the
     device; an entry is evicted when the host array is garbage-collected.
@@ -92,12 +116,17 @@ def device_gray(images: np.ndarray, device) -> torch.Tensor:
     device = torch.device(device)
     key = _cache_key(images) + (str(device),)
     hit = _DEVICE_CACHE.get(key)
-    if hit is not None:
-        return hit
-    gray = gray_tensor(images, device)
-    _DEVICE_CACHE[key] = gray
-    try:
-        weakref.finalize(images, _DEVICE_CACHE.pop, key, None)
-    except TypeError:
-        pass  # not weak-referenceable: the content key still prevents aliasing
-    return gray
+    if hit is None:
+        if use_kernel_on(device, kernels):
+            rgb = torch.from_numpy(np.ascontiguousarray(images)).to(device)
+            hit = (rgb_to_gray(rgb), "kernel")
+        else:
+            hit = (gray_tensor(images, device), "host")
+        _DEVICE_CACHE[key] = hit
+        try:
+            weakref.finalize(images, _DEVICE_CACHE.pop, key, None)
+        except TypeError:
+            pass  # not weak-referenceable: the content key still prevents aliasing
+    if metrics is not None:
+        metrics.record("gray_route", hit[1])
+    return hit[0]

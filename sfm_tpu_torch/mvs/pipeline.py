@@ -362,7 +362,7 @@ def _dense_reconstruction(images, calib, recon, config, scale, mesh,
     device = mesh.lead if mesh is not None else torch.device(device)
     mesh = mesh or DataMesh([device])
 
-    gray = device_gray(images, device)
+    gray = device_gray(images, device, kernels)
     use_kernel(gray, kernels)  # kernels=True on a CPU device raises here
     # K2 reads a bf16 stack: one copy of the shared gray stack per stage.
     gray = gray.to(torch.bfloat16)

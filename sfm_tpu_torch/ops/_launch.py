@@ -47,8 +47,14 @@ def launch_on(t: torch.Tensor):
 def use_kernel(t: torch.Tensor, kernels) -> bool:
     """Resolve a ``kernels`` switch (None / True / False) for tensor ``t``:
     None follows the device; True on a non-CUDA tensor is an error."""
+    return use_kernel_on(t.device, kernels)
+
+
+def use_kernel_on(device, kernels) -> bool:
+    """``use_kernel`` for tensors on ``device``, before any exists."""
+    device = torch.device(device)
     if kernels is None:
-        return t.is_cuda
-    if kernels and not t.is_cuda:
-        raise ValueError(f"kernels=True needs CUDA tensors, got {t.device}")
+        return device.type == "cuda"
+    if kernels and device.type != "cuda":
+        raise ValueError(f"kernels=True needs CUDA tensors, got {device}")
     return bool(kernels)

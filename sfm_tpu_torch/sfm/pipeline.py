@@ -282,7 +282,7 @@ def structure_from_motion(
 
     with timers.stage("features"):
         with timers.stage("gray"):
-            gray = device_gray(images, device)
+            gray = device_gray(images, device, config.runtime.kernels, metrics)
         kernels = use_kernel(gray, config.runtime.kernels)
         pad = (-n) % mesh.size
         if pad:

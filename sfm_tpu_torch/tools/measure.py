@@ -3,9 +3,9 @@
 ``bound`` is the least time an NVIDIA H100 SXM could spend on a call: the
 larger of the bytes it must move over the memory rate and its operations
 over the float32 peak (none of the kernels uses the tensor cores).
-``harris_bound`` and ``gather_bound`` count those bytes and operations for
-K1 (``ops/harris.py``) and K2 / K3 (``ops/gather.py``,
-``ops/gather_tile.py``) from the shapes of a call.  ``kernel_only_ms``
+``harris_bound``, ``gray_bound`` and ``gather_bound`` count those bytes and
+operations for K1 (``ops/harris.py``), K4 (``ops/gray.py``) and K2 / K3
+(``ops/gather.py``, ``ops/gather_tile.py``) from the shapes of a call.  ``kernel_only_ms``
 reads a kernel's own device time under torch.profiler, through
 ``profiled``, which takes a session again where the profiler lost its
 events.  ``chip_smoke.py`` and ``tools/stress_scale.py`` report with
@@ -34,6 +34,12 @@ def harris_bound(n_px):
     """K1 over ``n_px`` pixels: f32 in, f32 out; ~55 operations a pixel
     (two Sobels, three products, three 3x3 box sums, det - k trace^2)."""
     return bound(2 * 4 * n_px, 55 * n_px)
+
+
+def gray_bound(n_px):
+    """K4 (``ops/gray.py``) over ``n_px`` pixels: 3 bytes of uint8 RGB in,
+    a float32 out; five operations a pixel (three products, two sums)."""
+    return bound(7 * n_px, 5 * n_px)
 
 
 def gather_bound(stack_elems, m, wid=5):

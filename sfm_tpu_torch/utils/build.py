@@ -59,6 +59,8 @@ KERNEL_ARGTYPES = {
         _PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _I32, _I32, _I32,
         _I32, _PTR,
     ],
+    # rgb, out, n, h, w, stream
+    "rgb_to_gray_f32": [_PTR, _PTR, _I32, _I32, _I32, _PTR],
 }
 
 

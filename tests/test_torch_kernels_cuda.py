@@ -14,7 +14,10 @@ the tool's case, an expansion round's centres, non-finite centres and the
 edges of a guarded and of an odd-width stack, the staging route each set
 took by device kernel name, a 640-wide view off a 16-byte boundary on the
 per-row route, and an S / wid whose stages cannot fit a block refused
-before any launch.  Also K1 on shapes off the
+before any launch.  K4 (the grayscale conversion) bit-equal to the host
+conversion over all 2^24 RGB triples, on the rendered stack and on shapes
+off the main path, one device kernel a call, inputs refused before any
+launch, and ``device_gray``'s two routes.  Also K1 on shapes off the
 main path (odd width, tiny images, a 4-byte-aligned stack, non-integer
 gray) and what K2's one-launch design adds: its mask on the in-bounds
 limits, M = 1, 7 and 163,843, wid 0, 2 and 8, guarded and odd-width stacks,
@@ -49,11 +52,65 @@ def smoke():
 
 
 @pytest.fixture(scope="module")
-def stack(smoke):
+def ring(smoke):
+    images, _ = smoke.render_ring()
+    return images
+
+
+@pytest.fixture(scope="module")
+def stack(ring):
     from sfm_tpu_torch.io.images import gray_tensor
 
-    images, _ = smoke.render_ring()
-    return gray_tensor(images, "cuda")
+    return gray_tensor(ring, "cuda")
+
+
+def test_k4_bit_equal_on_every_triple_and_the_ring(smoke, ring):
+    from sfm_tpu_torch.ops.gray import rgb_to_gray
+
+    before = rgb_to_gray.launches
+    rgb = smoke.check_k4(ring)
+    assert rgb_to_gray.launches == before + 2
+    assert rgb.dtype == torch.uint8 and rgb.shape == ring.shape
+
+
+def test_k4_shapes_off_the_main_path_and_refusals(smoke):
+    from sfm_tpu_torch.ops.gray import rgb_to_gray
+
+    before = rgb_to_gray.launches
+    smoke.check_k4_shapes(torch.device("cuda"))
+    assert rgb_to_gray.launches == before + 9  # 8 shapes, the offset stack
+
+
+def test_k4_call_is_one_device_kernel(smoke):
+    from sfm_tpu_torch.ops.gray import rgb_to_gray
+
+    x = torch.randint(0, 256, (4, 48, 64, 3), dtype=torch.uint8, device="cuda")
+    where = smoke.host_and_device(lambda: rgb_to_gray(x))
+    assert where["launches"] == 1.0
+    assert any("gray_kernel" in k for k in where["kernels"])
+
+
+def test_device_gray_routes_on_the_card(smoke):
+    import numpy as np
+
+    from sfm_tpu_torch.io.images import device_gray
+    from sfm_tpu_torch.ops.gray import rgb_to_gray
+    from sfm_tpu_torch.utils.metrics import Metrics
+
+    images = np.random.default_rng(5).integers(0, 256, (3, 40, 56, 3), np.uint8)
+    m = Metrics()
+    before = rgb_to_gray.launches
+    a = device_gray(images, "cuda", metrics=m)
+    assert rgb_to_gray.launches == before + 1
+    assert m.values["gray_route"] == "kernel"
+    assert device_gray(images, "cuda", metrics=m) is a  # cached: no launch
+    assert rgb_to_gray.launches == before + 1
+    m = Metrics()
+    b = device_gray(images.copy(), "cuda", kernels=False, metrics=m)
+    assert rgb_to_gray.launches == before + 1
+    assert m.values["gray_route"] == "host"
+    assert torch.equal(a, b) and a.dtype == b.dtype == torch.float32
+    np.testing.assert_array_equal(a.cpu().numpy(), smoke.host_gray(images))
 
 
 def test_k1_bit_equal(smoke, stack):
