@@ -7,7 +7,9 @@ keeps cameras at calibration) the cameras are frozen in the solve itself;
 ``refine_cameras=True`` runs the joint solve, its reduced camera system by a
 dense Cholesky solve or by PCG (``dense_gate``).
 The same ``info`` keys and ``recon.metrics`` records as the JAX package,
-plus the dense gate's counts.  ``defer_fetch`` leaves the solution on the
+plus the dense gate's counts and, for the joint solve, the PCG solves' CG
+iterations and the solves that stopped at the cap (``ba_cg_iterations``,
+``ba_cg_capped``).  ``defer_fetch`` leaves the solution on the
 device until ``info["finalize"]()``, as in the JAX package, so a caller can
 enqueue MVS first (MVS re-triangulates its seeds from the observations and
 never reads the refined points).
@@ -106,7 +108,8 @@ def bundle_adjust(
 
     The call is the span ``ba`` of ``recon.timers`` (a trace of its own
     where that is None), with ``ba.assemble``, ``ba.solve`` (and its
-    ``ba.solve.wait``) and ``ba.fetch``; ``info["timers"]`` is the live
+    ``ba.solve.wait``; by PCG also ``ba.solve.cg`` and ``ba.solve.cg.wait``)
+    and ``ba.fetch``; ``info["timers"]`` is the live
     view of ``ba``'s children (``assemble``, ``solve``, ``fetch``).
     """
     timers = recon.timers if recon.timers is not None else StageTimer()
@@ -129,6 +132,7 @@ def bundle_adjust(
             )
         gate = dense_gate(recon, config)
         pair_span = int(gate["ba_dense_schur_decided_by"] == "dense")
+        cg_before = solve_lm.cg_iterations, solve_lm.cg_capped
         with timers.stage("solve"):
             solve = dict(
                 max_iterations=config.max_iterations,
@@ -157,8 +161,12 @@ def bundle_adjust(
             "timers": timers.view(path),
         }
         if config.refine_cameras:
-            info.update(gate)
-            for k, v in gate.items():
+            # With the PCG solves' counts (0 on the dense path).
+            counts = dict(
+                gate, ba_cg_iterations=solve_lm.cg_iterations - cg_before[0],
+                ba_cg_capped=solve_lm.cg_capped - cg_before[1])
+            info.update(counts)
+            for k, v in counts.items():
                 recon.metrics.record(k, v)
         if mesh is not None:
             recon.metrics.record("ba_mesh_devices", mesh.size)

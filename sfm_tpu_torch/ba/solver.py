@@ -164,7 +164,8 @@ def _schur_matvec(x, mesh, shards, tables, blocks, U_lam, Vinv):
 def _pcg(matvec, b, Minv_blocks, iters: int, tol: float):
     """Block-Jacobi preconditioned CG for the (N, 12) camera system: the
     loop of ``sfm_tpu.ba.solver._pcg`` with the same stopping rule, one
-    host sync per iteration (the residual test)."""
+    host sync per iteration (the residual test, the span ``wait`` under
+    the caller's open span).  Returns (x, iterations run)."""
 
     def apply_prec(r):
         return torch.einsum("nij,nj->ni", Minv_blocks, r)
@@ -176,7 +177,10 @@ def _pcg(matvec, b, Minv_blocks, iters: int, tol: float):
     rz = torch.sum(r * z)
     bnorm = torch.sqrt(torch.sum(b * b)) + 1e-30
     it = 0
-    while it < iters and bool(torch.sqrt(torch.sum(r * r)) > tol * bnorm):
+    while it < iters:
+        with span("wait"):  # the host blocks on the device here
+            if not bool(torch.sqrt(torch.sum(r * r)) > tol * bnorm):
+                break
         Ap = matvec(p)
         alpha = rz / torch.clamp_min(torch.sum(p * Ap), 1e-30)
         x = x + alpha * p
@@ -187,7 +191,7 @@ def _pcg(matvec, b, Minv_blocks, iters: int, tol: float):
         p = z + beta * p
         rz = rz_new
         it += 1
-    return x
+    return x, it
 
 
 def _pair_structure(problem: BAProblem, point_table: torch.Tensor):
@@ -293,8 +297,11 @@ def solve_lm(
     """Run LM; returns (cams, points, final_cost 0-dim tensor, iterations
     int).  The loop of ``sfm_tpu.ba.solver._lm_impl``, with one host sync
     per iteration (accept and the stop test together, the span ``wait``
-    under the caller's open span: ``ba.solve.wait``; the PCG camera solve
-    adds one per CG iteration).
+    under the caller's open span: ``ba.solve.wait``).  The PCG camera solve
+    is the span ``cg`` (``ba.solve.cg``) and adds one sync per CG iteration
+    (``ba.solve.cg.wait``); it counts into ``solve_lm.cg_solves``,
+    ``solve_lm.cg_iterations`` and ``solve_lm.cg_capped`` (solves that ran
+    all ``cg_iters`` iterations).
 
     ``optimize_cameras=False`` freezes the cameras in the solve itself (no
     reduced system at all).  ``pair_span > 0`` selects the dense reduced
@@ -357,11 +364,15 @@ def solve_lm(
                 dc = _dense_schur_dc(mesh, shards, tables, blocks, U_lam,
                                      Vinv, g)
             else:
-                dc = _pcg(
-                    lambda x: _schur_matvec(x, mesh, shards, tables, blocks,
-                                            U_lam, Vinv),
-                    g, torch.linalg.inv(U_lam), cg_iters, cg_tol,
-                )
+                with span("cg"):
+                    dc, cg_its = _pcg(
+                        lambda x: _schur_matvec(x, mesh, shards, tables,
+                                                blocks, U_lam, Vinv),
+                        g, torch.linalg.inv(U_lam), cg_iters, cg_tol,
+                    )
+                solve_lm.cg_solves += 1
+                solve_lm.cg_iterations += cg_its
+                solve_lm.cg_capped += cg_its == cg_iters
             # Back-substitute the points: dp = V^-1 (b_p - W^T dc).
             wtd = _to_points(mesh, shards, tables, blocks.W, dc)
             dp = torch.einsum("pij,pj->pi", Vinv, blocks.b_p - wtd)
@@ -386,3 +397,10 @@ def solve_lm(
             cams, cams_r = new_cams, new_cr
             points, points_r = new_points, new_pr
     return cams, points, cost, iteration
+
+
+# Process counters of the PCG camera solves (one a joint LM iteration off
+# the dense path): solves, CG iterations, and solves stopped at cg_iters.
+solve_lm.cg_solves = 0
+solve_lm.cg_iterations = 0
+solve_lm.cg_capped = 0

@@ -56,8 +56,11 @@ torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIELDS = ("cams", "points", "cam_idx", "point_idx", "obs_2d", "mask")
+# The joint solve's keys the port adds: its dense gate's counts and the
+# PCG solves' CG counts.
 GATE_KEYS = ("ba_dense_schur_pairs", "ba_dense_schur_pair_bytes",
-             "ba_dense_schur_grid_bytes", "ba_dense_schur_decided_by")
+             "ba_dense_schur_grid_bytes", "ba_dense_schur_decided_by",
+             "ba_cg_iterations", "ba_cg_capped")
 
 
 def carry(jp):
@@ -294,7 +297,8 @@ def test_bundle_adjust_refine_cameras_matches_jax(sphere_sparse, max_cams, solve
     rec, info = bundle_adjust(
         sparse_from_jax(r), BaConfig(dtype="float64", refine_cameras=True,
                                      dense_schur_max_cams=max_cams), device="cpu")
-    # The port adds the counts of its dense gate (ba.run.dense_gate).
+    # The port adds the counts of its dense gate (ba.run.dense_gate) and of
+    # its CG solves.
     assert set(info) - set(GATE_KEYS) == set(jinfo)
     assert info["ba_dense_schur_decided_by"] == (
         "dense" if solver == "dense_schur" else "max_cams")
