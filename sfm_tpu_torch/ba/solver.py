@@ -8,7 +8,9 @@ decouples into one 3x3 block per point, V_p dp = b_p.  The joint solve
 eliminates the points and solves the reduced camera system
 S = U_l - sum_p W_p V_lp^-1 W_p^T either matrix-free by block-Jacobi
 preconditioned conjugate gradients (``_pcg``: each S x is three segment
-passes over the observations) or, for small camera counts, by dense
+passes over the observations; the residual is tested on the device and
+read by the host once a block of iterations; on one CUDA device the block
+is a CUDA graph, ``_GraphPCG``) or, for small camera counts, by dense
 assembly and a Cholesky factorisation (``_dense_schur_dc``), then
 back-substitutes the points.  The JAX package's ``lax.while_loop``s are host
 loops here; accept/reject, damping and the stop rules are the same
@@ -35,7 +37,7 @@ import torch
 from sfm_tpu_torch.ba.model import jacobian_blocks, total_cost
 from sfm_tpu_torch.ba.problem import BAProblem
 from sfm_tpu_torch.geometry.linalg3 import inv3
-from sfm_tpu_torch.parallel.mesh import DataMesh
+from sfm_tpu_torch.parallel.mesh import DataMesh, GroupMesh
 from sfm_tpu_torch.utils.metrics import span
 
 _OBS_FIELDS = ("cam_idx", "point_idx", "obs_2d", "mask")
@@ -161,37 +163,152 @@ def _schur_matvec(x, mesh, shards, tables, blocks, U_lam, Vinv):
     return Ux - _to_cameras(mesh, shards, tables, blocks.W, b_vp)
 
 
-def _pcg(matvec, b, Minv_blocks, iters: int, tol: float):
-    """Block-Jacobi preconditioned CG for the (N, 12) camera system: the
-    loop of ``sfm_tpu.ba.solver._pcg`` with the same stopping rule, one
-    host sync per iteration (the residual test, the span ``wait`` under
-    the caller's open span).  Returns (x, iterations run)."""
+# CG iterations between two host reads of the stop flag.
+CG_BLOCK = 10
 
-    def apply_prec(r):
-        return torch.einsum("nij,nj->ni", Minv_blocks, r)
 
-    x = torch.zeros_like(b)
-    r = b
-    z = apply_prec(r)
-    p = z
+class _CGState(NamedTuple):
+    """One PCG solve's state on its device, updated in place: the iterate,
+    residual and direction (N, 12), rz = r . z, the stop threshold
+    tol * |b|, whether the next iteration runs, and the iterations run."""
+
+    x: torch.Tensor
+    r: torch.Tensor
+    p: torch.Tensor
+    rz: torch.Tensor
+    thresh: torch.Tensor
+    active: torch.Tensor
+    count: torch.Tensor
+
+    @classmethod
+    def like(cls, b):
+        return cls(torch.zeros_like(b), torch.zeros_like(b),
+                   torch.zeros_like(b), b.new_zeros(()), b.new_zeros(()),
+                   torch.zeros((), dtype=torch.bool, device=b.device),
+                   torch.zeros((), dtype=torch.long, device=b.device))
+
+
+def _precondition(Minv_blocks, r):
+    return torch.einsum("nij,nj->ni", Minv_blocks, r)
+
+
+def _cg_more(s: _CGState, iters: int):
+    """The stop rule of ``sfm_tpu.ba.solver._pcg`` on the device: another
+    iteration runs while fewer than ``iters`` have run and
+    |r| > tol * |b|."""
+    return (s.count < iters) & (torch.sqrt(torch.sum(s.r * s.r)) > s.thresh)
+
+
+def _cg_start(s: _CGState, b, Minv_blocks, iters: int, tol: float):
+    """Reset ``s`` to the start of a solve of S x = b."""
+    s.x.zero_()
+    s.r.copy_(b)
+    z = _precondition(Minv_blocks, b)
+    s.p.copy_(z)
+    s.rz.copy_(torch.sum(b * z))
+    s.thresh.copy_(tol * (torch.sqrt(torch.sum(b * b)) + 1e-30))
+    s.count.zero_()
+    s.active.copy_(_cg_more(s, iters))
+
+
+def _cg_step(s: _CGState, matvec, Minv_blocks, iters: int):
+    """One CG iteration where ``s.active``: the new values go through
+    ``torch.where``, so a stopped solve keeps its state bit for bit
+    whatever a later step computes.  No host sync."""
+    Ap = matvec(s.p)
+    alpha = s.rz / torch.clamp_min(torch.sum(s.p * Ap), 1e-30)
+    x = s.x + alpha * s.p
+    r = s.r - alpha * Ap
+    z = _precondition(Minv_blocks, r)
     rz = torch.sum(r * z)
-    bnorm = torch.sqrt(torch.sum(b * b)) + 1e-30
-    it = 0
-    while it < iters:
+    beta = rz / torch.clamp_min(s.rz, 1e-30)
+    p = z + beta * s.p
+    go = s.active
+    for old, new in ((s.x, x), (s.r, r), (s.p, p), (s.rz, rz)):
+        torch.where(go, new, old, out=old)
+    s.count.add_(go)
+    torch.logical_and(go, _cg_more(s, iters), out=s.active)
+
+
+def _cg_block(s: _CGState, matvec, Minv_blocks, iters: int):
+    for _ in range(CG_BLOCK):
+        _cg_step(s, matvec, Minv_blocks, iters)
+
+
+def _pcg_blocks(s: _CGState, b, Minv_blocks, iters: int, tol: float,
+                run_block):
+    """Block-Jacobi preconditioned CG for the (N, 12) camera system: the
+    loop of ``sfm_tpu.ba.solver._pcg`` with the same stopping rule, tested
+    on the device (``_cg_step``).  ``run_block()`` runs ``CG_BLOCK``
+    iterations on ``s``; the host reads the stop flag after each block
+    (the span ``wait`` under the caller's open span).  Returns (x,
+    iterations run)."""
+    _cg_start(s, b, Minv_blocks, iters, tol)
+    for _ in range(-(-iters // CG_BLOCK)):
+        run_block()
         with span("wait"):  # the host blocks on the device here
-            if not bool(torch.sqrt(torch.sum(r * r)) > tol * bnorm):
+            if not bool(s.active):
                 break
-        Ap = matvec(p)
-        alpha = rz / torch.clamp_min(torch.sum(p * Ap), 1e-30)
-        x = x + alpha * p
-        r = r - alpha * Ap
-        z = apply_prec(r)
-        rz_new = torch.sum(r * z)
-        beta = rz_new / torch.clamp_min(rz, 1e-30)
-        p = z + beta * p
-        rz = rz_new
-        it += 1
-    return x, it
+    return s.x.clone(), int(s.count)
+
+
+def _pcg(matvec, b, Minv_blocks, iters: int, tol: float):
+    """``_pcg_blocks`` run eagerly on a fresh state."""
+    s = _CGState.like(b)
+    return _pcg_blocks(s, b, Minv_blocks, iters, tol,
+                       lambda: _cg_block(s, matvec, Minv_blocks, iters))
+
+
+def _graphable(mesh) -> bool:
+    """Whether the PCG solve can replay a CUDA graph: a mesh of one CUDA
+    shard in one process, whose ``replicate`` and ``psum`` move
+    nothing."""
+    return (mesh.size == 1 and mesh.lead.type == "cuda"
+            and not isinstance(mesh, GroupMesh))
+
+
+class _GraphPCG:
+    """``_pcg`` as a CUDA graph of ``CG_BLOCK`` iterations, captured once
+    per ``solve_lm`` call (the slot tables and every operand's shape are
+    fixed within one) over static copies of the operands.  Each solve
+    copies its W, U_lam, V_lam^-1 and preconditioner in, resets the state
+    and replays the graph block by block: the same kernels in the same
+    order as the eager loop, launched by the device."""
+
+    def __init__(self, mesh, shards, tables, blocks, U_lam, Vinv,
+                 Minv_blocks, b, iters: int):
+        (W,) = blocks.W
+        self.operands = (W.clone(), U_lam.clone(), Vinv.clone(),
+                         Minv_blocks.clone())
+        W_s, U_s, Vinv_s, Minv_s = self.operands
+        static = blocks._replace(W=(W_s,))
+        self.iters = iters
+        self.state = s = _CGState.like(b)
+
+        def matvec(x):
+            return _schur_matvec(x, mesh, shards, tables, static, U_s, Vinv_s)
+
+        # Capture runs on a side stream, after one eager iteration there
+        # that makes the library handles and workspaces; its values are
+        # scratch: every solve starts the state afresh.
+        current = torch.cuda.current_stream(b.device)
+        side = torch.cuda.Stream(b.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            _cg_start(s, b, Minv_s, iters, 0.0)
+            _cg_step(s, matvec, Minv_s, iters)
+            self.graph = torch.cuda.CUDAGraph()
+            self.graph.capture_begin(capture_error_mode="thread_local")
+            _cg_block(s, matvec, Minv_s, iters)
+            self.graph.capture_end()
+        current.wait_stream(side)
+
+    def solve(self, blocks, U_lam, Vinv, Minv_blocks, b, tol: float):
+        for dst, src in zip(self.operands, (blocks.W[0], U_lam, Vinv,
+                                            Minv_blocks)):
+            dst.copy_(src)
+        return _pcg_blocks(self.state, b, Minv_blocks, self.iters, tol,
+                           self.graph.replay)
 
 
 def _pair_structure(problem: BAProblem, point_table: torch.Tensor):
@@ -298,10 +415,12 @@ def solve_lm(
     int).  The loop of ``sfm_tpu.ba.solver._lm_impl``, with one host sync
     per iteration (accept and the stop test together, the span ``wait``
     under the caller's open span: ``ba.solve.wait``).  The PCG camera solve
-    is the span ``cg`` (``ba.solve.cg``) and adds one sync per CG iteration
-    (``ba.solve.cg.wait``); it counts into ``solve_lm.cg_solves``,
-    ``solve_lm.cg_iterations`` and ``solve_lm.cg_capped`` (solves that ran
-    all ``cg_iters`` iterations).
+    is the span ``cg`` (``ba.solve.cg``) and adds one sync per
+    ``CG_BLOCK`` CG iterations (``ba.solve.cg.wait``); it counts into
+    ``solve_lm.cg_solves``, ``solve_lm.cg_iterations``,
+    ``solve_lm.cg_capped`` (solves that ran all ``cg_iters`` iterations)
+    and ``solve_lm.cg_graph_solves`` (solves by CUDA graph replay: on a
+    mesh of one CUDA shard, ``_GraphPCG``; eager elsewhere).
 
     ``optimize_cameras=False`` freezes the cameras in the solve itself (no
     reduced system at all).  ``pair_span > 0`` selects the dense reduced
@@ -350,6 +469,7 @@ def solve_lm(
     cams_r, points_r = mesh.replicate(cams), mesh.replicate(points)
     lam = torch.tensor(init_lambda, dtype=cams.dtype, device=cams.device)
     cost = cost_of(cams_r, points_r)
+    graph = None  # the PCG solve's _GraphPCG, made at its first solve
     iteration = 0
     done = False
     while not done and iteration < max_iterations:
@@ -365,11 +485,20 @@ def solve_lm(
                                      Vinv, g)
             else:
                 with span("cg"):
-                    dc, cg_its = _pcg(
-                        lambda x: _schur_matvec(x, mesh, shards, tables,
-                                                blocks, U_lam, Vinv),
-                        g, torch.linalg.inv(U_lam), cg_iters, cg_tol,
-                    )
+                    Minv = torch.linalg.inv(U_lam)
+                    if not _graphable(mesh):
+                        dc, cg_its = _pcg(
+                            lambda x: _schur_matvec(x, mesh, shards, tables,
+                                                    blocks, U_lam, Vinv),
+                            g, Minv, cg_iters, cg_tol,
+                        )
+                    else:
+                        if graph is None:
+                            graph = _GraphPCG(mesh, shards, tables, blocks,
+                                              U_lam, Vinv, Minv, g, cg_iters)
+                        dc, cg_its = graph.solve(blocks, U_lam, Vinv, Minv,
+                                                 g, cg_tol)
+                        solve_lm.cg_graph_solves += 1
                 solve_lm.cg_solves += 1
                 solve_lm.cg_iterations += cg_its
                 solve_lm.cg_capped += cg_its == cg_iters
@@ -400,7 +529,9 @@ def solve_lm(
 
 
 # Process counters of the PCG camera solves (one a joint LM iteration off
-# the dense path): solves, CG iterations, and solves stopped at cg_iters.
+# the dense path): solves, CG iterations, solves stopped at cg_iters, and
+# solves by CUDA graph replay.
 solve_lm.cg_solves = 0
 solve_lm.cg_iterations = 0
 solve_lm.cg_capped = 0
+solve_lm.cg_graph_solves = 0

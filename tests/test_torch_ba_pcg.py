@@ -1,7 +1,9 @@
 """Joint bundle adjustment by PCG (``ba/solver.py:_pcg``): the port's
 ``bundle_adjust(refine_cameras=True)`` against the benchmark's plain
 reference (``benchmark/sfmref/ba.py``) on seeded tracks, the dense gate at
-the full dino set's 363 cameras, and the PCG solve's spans and counters."""
+the full dino set's 363 cameras, the PCG solve's spans and counters, and
+the blocked loop with its stop rule on the device against a loop that
+tests the residual on the host before every iteration."""
 
 import json
 import os
@@ -13,7 +15,9 @@ import torch
 
 from sfm_tpu_torch.ba import bundle_adjust
 from sfm_tpu_torch.ba.run import dense_gate_counts
-from sfm_tpu_torch.ba.solver import solve_lm
+from sfm_tpu_torch.ba import solver
+from sfm_tpu_torch.ba.problem import build_problem
+from sfm_tpu_torch.ba.solver import CG_BLOCK, solve_lm
 from sfm_tpu_torch.config import BaConfig
 from sfm_tpu_torch.io.calib import Calibration
 from sfm_tpu_torch.sfm.pipeline import SparseReconstruction
@@ -93,7 +97,8 @@ def ba_block(**over):
 
 
 def counters():
-    return solve_lm.cg_solves, solve_lm.cg_iterations, solve_lm.cg_capped
+    return (solve_lm.cg_solves, solve_lm.cg_iterations, solve_lm.cg_capped,
+            solve_lm.cg_graph_solves)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
@@ -128,7 +133,8 @@ def test_pcg_solve_records_its_spans_and_counts(tracks):
         BaConfig(**ba_block(dense_schur_max_cams=PCG_MAX_CAMS,
                             max_iterations=LM_ITERS, refine_cameras=True)),
         device="cpu")
-    solves, iters, capped = (b - a for a, b in zip(before, counters()))
+    solves, iters, capped, graphed = (b - a
+                                      for a, b in zip(before, counters()))
     times = rec.timers.times
     for key in CG_SPANS:
         assert key in times, key
@@ -140,6 +146,8 @@ def test_pcg_solve_records_its_spans_and_counts(tracks):
     assert capped == info["ba_cg_capped"] <= solves
     assert rec.metrics.values["ba_cg_iterations"] == iters
     assert rec.metrics.values["ba_cg_capped"] == capped
+    # The CPU solves eagerly: no graph.
+    assert graphed == 0
 
 
 @pytest.mark.parametrize("refine", [True, False], ids=["dense", "points"])
@@ -157,6 +165,97 @@ def test_dense_and_points_only_solves_leave_pcg_untouched(tracks, refine):
         assert info["ba_cg_iterations"] == info["ba_cg_capped"] == 0
     else:
         assert "ba_cg_iterations" not in info
+
+
+# --- The blocked loop against the per-iteration loop -----------------------
+
+def pcg_per_iteration(matvec, b, Minv_blocks, iters, tol):
+    """The PCG loop with the residual tested on the host before every
+    iteration, as the JAX package's loop and the plain reference run it:
+    (x, iterations run)."""
+
+    def apply_prec(r):
+        return torch.einsum("nij,nj->ni", Minv_blocks, r)
+
+    x = torch.zeros_like(b)
+    r = b
+    z = apply_prec(r)
+    p = z
+    rz = torch.sum(r * z)
+    bnorm = torch.sqrt(torch.sum(b * b)) + 1e-30
+    it = 0
+    while it < iters:
+        if not bool(torch.sqrt(torch.sum(r * r)) > tol * bnorm):
+            break
+        Ap = matvec(p)
+        alpha = rz / torch.clamp_min(torch.sum(p * Ap), 1e-30)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = apply_prec(r)
+        rz_new = torch.sum(r * z)
+        beta = rz_new / torch.clamp_min(rz, 1e-30)
+        p = z + beta * p
+        rz = rz_new
+        it += 1
+    return x, it
+
+
+def spd_system(dtype, n=16, seed=0):
+    """(matvec, b, block-Jacobi preconditioner) of a seeded symmetric
+    positive definite (n, 12) system with eigenvalues from 1 to 1e3."""
+    rng = np.random.default_rng(seed)
+    q, _ = np.linalg.qr(rng.normal(size=(12 * n, 12 * n)))
+    A = torch.tensor((q * np.geomspace(1, 1e3, 12 * n)) @ q.T, dtype=dtype)
+    b = torch.tensor(rng.normal(size=(n, 12)), dtype=dtype)
+    diag = torch.stack([A[12 * i:12 * i + 12, 12 * i:12 * i + 12]
+                        for i in range(n)])
+    return ((lambda x: (A @ x.reshape(-1)).reshape(n, 12)), b,
+            torch.linalg.inv(diag))
+
+
+# case -> (iters, tol, zero right-hand side, what the per-iteration loop
+# runs: "mid" stops by tol inside a block, else that count).
+PCG_CASES = {
+    "tol_mid_block": (100, 0.03, False, "mid"),
+    "zero_b": (100, 1e-6, True, 0),
+    "cap_23": (23, 1e-30, False, 23),
+    "capped": (40, 1e-30, False, 40),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("case", sorted(PCG_CASES))
+def test_blocked_pcg_equals_the_per_iteration_loop(case, dtype):
+    iters, tol, zero_b, runs = PCG_CASES[case]
+    matvec, b, Minv = spd_system(getattr(torch, dtype))
+    if zero_b:
+        b = torch.zeros_like(b)
+    x_want, n_want = pcg_per_iteration(matvec, b, Minv, iters, tol)
+    if runs == "mid":
+        assert 0 < n_want < iters and n_want % CG_BLOCK, n_want
+    else:
+        assert n_want == runs
+    x, n = solver._pcg(matvec, b, Minv, iters, tol)
+    assert n == n_want
+    assert torch.equal(x, x_want)
+
+
+def test_solve_lm_equals_it_with_the_per_iteration_loop(tracks, monkeypatch):
+    """A joint ``solve_lm`` by PCG gives the same bits whether its camera
+    solves run the blocked loop or the per-iteration one."""
+    rec = recon_of(tracks)
+    problem = build_problem(rec.calib, rec.world, rec.track_offsets,
+                            rec.track_obs)
+    kw = dict(max_iterations=LM_ITERS, optimize_cameras=True)
+    before = counters()
+    blocked = solve_lm(problem, **kw)
+    its = solve_lm.cg_iterations - before[1]
+    monkeypatch.setattr(solver, "_pcg", pcg_per_iteration)
+    per_iteration = solve_lm(problem, **kw)
+    assert solve_lm.cg_iterations - before[1] == 2 * its > 0
+    for got, want in zip(blocked[:3], per_iteration[:3]):
+        assert torch.equal(got, want)
+    assert blocked[3] == per_iteration[3]
 
 
 # --- The benchmark's readers of the spans and counters ----------------------
@@ -203,4 +302,21 @@ def test_iterations_reader_divides_the_process_counters(monkeypatch):
     assert reader.read(_run([])) is None
     # A program without the counters (the parent) gives nothing.
     monkeypatch.delattr(solve_lm, "cg_solves")
+    assert reader.read(_run([])) is None
+
+
+def test_graph_share_reader_divides_the_process_counters(monkeypatch):
+    entry, reader = _reader("ba_cg_graph_share")
+    assert (entry["source"], entry["unit"], entry["better"], entry["moves"],
+            entry["workloads"]) == ("program_counter", "share", "higher",
+                                    "frames_per_s",
+                                    ["dino_full363.seq_joint_scale10"])
+    monkeypatch.setattr(solve_lm, "cg_solves", 8)
+    monkeypatch.setattr(solve_lm, "cg_graph_solves", 6)
+    assert reader.read(_run([])) == pytest.approx(0.75)
+    monkeypatch.setattr(solve_lm, "cg_solves", 0)
+    assert reader.read(_run([])) is None
+    # A program without the graph counter (the parent) gives nothing.
+    monkeypatch.setattr(solve_lm, "cg_solves", 8)
+    monkeypatch.delattr(solve_lm, "cg_graph_solves")
     assert reader.read(_run([])) is None
