@@ -52,7 +52,8 @@
 // no order of additions can change a bit and the response is bit-equal to
 // the plain version.  On other input the box sums may differ from _box3's
 // in their last bit, which det = sxx syy - sxy^2 amplifies where it cancels:
-// chip_smoke.py holds the response to 1e-5 of the largest |R| there.
+// tests/test_torch_kernels_cuda.py holds the response to 1e-5 of the
+// largest |R| there.
 
 #include <cuda_runtime.h>
 

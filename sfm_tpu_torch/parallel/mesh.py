@@ -13,7 +13,7 @@ methods move nothing: there is one code path.
 
 A mesh may name one device more than once ("virtual shards", the
 counterpart of XLA's simulated host devices): the tests run 8 shards on the
-CPU, and ``chip_smoke.py`` runs 4 shards on one GPU.
+CPU, and the card tests (``tests/test_torch_*_cuda.py``) 4 on one GPU.
 
 ``GroupMesh`` is the same mesh across the processes of a
 ``torch.distributed`` group (``distributed.initialize_multihost``), as

@@ -8,8 +8,9 @@ operations for K1 (``ops/harris.py``), K4 (``ops/gray.py``) and K2 / K3
 (``ops/gather.py``, ``ops/gather_tile.py``) from the shapes of a call.  ``kernel_only_ms``
 reads a kernel's own device time under torch.profiler, through
 ``profiled``, which takes a session again where the profiler lost its
-events.  ``chip_smoke.py`` and ``tools/stress_scale.py`` report with
-these, so both count alike.
+events.  ``tools/stress_scale.py`` reports with these and the card tests
+(``tests/test_torch_*_cuda.py``) count kernels with them, so both count
+alike.
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ A copy of ``sfm_tpu/utils/synth.py``, which the port cannot import (any
 ``sfm_tpu`` import pulls in jax).  Renders exact-calibration scenes: ring,
 arc, grid and irregular rigs; textured spheres (closed-form ray-sphere
 geometry, random-Fourier 3-D texture, so every point has an exact
-ground-truth surface distance).  The parity tests, ``chip_smoke.py`` and
+ground-truth surface distance).  The parity tests, the card tests and
 ``tools/stress_scale.py`` render the textured-sphere ring with it;
 ``render_scene`` renders the frames on a thread pool, the same images as
 ``sfm_tpu``'s one frame after another.

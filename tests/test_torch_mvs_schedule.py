@@ -43,6 +43,8 @@ from sfm_tpu_torch.parallel import DataMesh
 from sfm_tpu_torch.utils import checkpoint as t_ckpt
 from sfm_tpu_torch.utils import synth
 
+from mvs_rounds import enqueued_rounds
+
 torch.set_num_threads(2)
 
 BASE = dict(max_rounds=8, max_patches=20000, shape_buckets=False)
@@ -315,7 +317,7 @@ def test_defer_fetch_joint_cameras(scene):
     assert r_def.metrics.values == r_eager.metrics.values
 
 
-# --- the rule chip_smoke.py holds K2's launches to ---------------------------------
+# --- the rule the card tests hold K2's launches to ---------------------------------
 
 @pytest.mark.parametrize("cap,chunk,max_rounds,max_patches", [
     (2048, 1, 64, 20000),   # stops on a dry round: one round enqueued ahead
@@ -327,10 +329,8 @@ def test_defer_fetch_joint_cameras(scene):
 def test_rounds_enqueued_follow_the_dispatch_ahead_rule(
         scene, cap, chunk, max_rounds, max_patches, monkeypatch):
     """The rounds the host loop enqueues (each one K2 sweep on the card)
-    are those that ``chip_smoke.enqueued_rounds`` derives from a run's
-    final counters, read rounds and rounds never read included."""
-    import chip_smoke
-
+    are those that ``enqueued_rounds`` derives from a run's final
+    counters, read rounds and rounds never read included."""
     enqueued = [0]
     real = t_pipeline.expansion_round
 
@@ -345,7 +345,7 @@ def test_rounds_enqueued_follow_the_dispatch_ahead_rule(
     rec = scene["rec"]
     dense = dense_reconstruction(scene["images"], rec.calib, rec, cfg, device="cpu")
     mv = dense.metrics.values
-    want, wasted = chip_smoke.enqueued_rounds(
+    want, wasted = enqueued_rounds(
         mv["mvs_rounds"], mv["mvs_num_points"], dense.num_seeds, cfg,
         backlog_left=mv.get("mvs_backlog_remaining", 0))
     assert enqueued[0] == want
