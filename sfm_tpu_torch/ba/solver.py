@@ -37,7 +37,7 @@ import torch
 from sfm_tpu_torch.ba.model import jacobian_blocks, total_cost
 from sfm_tpu_torch.ba.problem import BAProblem
 from sfm_tpu_torch.geometry.linalg3 import inv3
-from sfm_tpu_torch.parallel.mesh import DataMesh, GroupMesh
+from sfm_tpu_torch.parallel.mesh import DataMesh, graphable
 from sfm_tpu_torch.utils.metrics import span
 
 _OBS_FIELDS = ("cam_idx", "point_idx", "obs_2d", "mask")
@@ -259,14 +259,6 @@ def _pcg(matvec, b, Minv_blocks, iters: int, tol: float):
                        lambda: _cg_block(s, matvec, Minv_blocks, iters))
 
 
-def _graphable(mesh) -> bool:
-    """Whether the PCG solve can replay a CUDA graph: a mesh of one CUDA
-    shard in one process, whose ``replicate`` and ``psum`` move
-    nothing."""
-    return (mesh.size == 1 and mesh.lead.type == "cuda"
-            and not isinstance(mesh, GroupMesh))
-
-
 class _GraphPCG:
     """``_pcg`` as a CUDA graph of ``CG_BLOCK`` iterations, captured once
     per ``solve_lm`` call (the slot tables and every operand's shape are
@@ -420,7 +412,8 @@ def solve_lm(
     ``solve_lm.cg_solves``, ``solve_lm.cg_iterations``,
     ``solve_lm.cg_capped`` (solves that ran all ``cg_iters`` iterations)
     and ``solve_lm.cg_graph_solves`` (solves by CUDA graph replay: on a
-    mesh of one CUDA shard, ``_GraphPCG``; eager elsewhere).
+    mesh of one CUDA shard, ``parallel.mesh.graphable``: ``_GraphPCG``;
+    eager elsewhere).
 
     ``optimize_cameras=False`` freezes the cameras in the solve itself (no
     reduced system at all).  ``pair_span > 0`` selects the dense reduced
@@ -486,7 +479,7 @@ def solve_lm(
             else:
                 with span("cg"):
                     Minv = torch.linalg.inv(U_lam)
-                    if not _graphable(mesh):
+                    if not graphable(mesh):
                         dc, cg_its = _pcg(
                             lambda x: _schur_matvec(x, mesh, shards, tables,
                                                     blocks, U_lam, Vinv),

@@ -20,7 +20,9 @@ accumulated cloud is re-scored in one sweep (K2's largest launch) and
 filtered on the device (``mvs/filter.py``).
 
 The host loop is the JAX package's, letter for letter.  A round issues
-no host read (``mvs/expand.py``), and each chunk's payload is copied to
+no host read (``mvs/expand.py``) and runs on buffers allocated once a call
+(``_Rounds``); on one CUDA device every chunk after the first is one
+replay of a CUDA graph of a chunk.  Each chunk's payload is copied to
 pinned host memory as soon as the chunk is enqueued, with an event behind
 it: the host enqueues the next chunk first and then waits on this one's
 event, so the device runs ahead of the host's unpacking (dispatch-ahead,
@@ -62,7 +64,11 @@ from sfm_tpu_torch.mvs.photoconsistency import (
 )
 from sfm_tpu_torch.mvs.seed import build_seed_candidates, seed_patches
 from sfm_tpu_torch.ops._launch import use_kernel
-from sfm_tpu_torch.parallel.mesh import DataMesh
+from sfm_tpu_torch.ops.gather import (
+    sample_normalized_patches,
+    sample_normalized_patches_sharded,
+)
+from sfm_tpu_torch.parallel.mesh import DataMesh, graphable
 from sfm_tpu_torch.sfm.pipeline import SparseReconstruction
 from sfm_tpu_torch.utils import checkpoint as ckpt
 from sfm_tpu_torch.utils.buckets import bucket_images
@@ -121,6 +127,93 @@ class _HostCopy:
         if self.event is not None:
             self.event.synchronize()
         return self.host.numpy()
+
+
+# Per CUDA device, the stream the round graphs are captured on and the
+# last graph captured there.  One stream, so that the library workspaces a
+# capture sets up for it are made once; each capture shares the last
+# graph's memory pool, which that graph (never replayed again) keeps alive
+# until then, so that the memory passes from call to call instead of being
+# allocated anew for each.  The calls on one device run one after another.
+_CAPTURE = {}
+
+
+class _Rounds:
+    """The expansion rounds of one ``dense_reconstruction`` call over
+    buffers allocated once a call: the frontier (``_FRONTIER_KEYS``,
+    ``round_capacity`` rows each) and the occupancy grid.  ``run(occupancy,
+    frontier)`` enqueues one chunk of ``chunk`` rounds (``expansion_round``);
+    ``dispatch()`` runs it on the buffers, copies its accepted frontier
+    and occupancy back into them as its last step, and returns its packed
+    payload.  The backlog merge writes its frontier into them between
+    chunks (``load``).
+
+    With ``graph`` (``parallel.mesh.graphable``: a mesh of one CUDA device
+    in one process) the second dispatch captures one chunk as a CUDA
+    graph, on the device's capture stream into the last call's memory
+    pool (``_CAPTURE``), and it and every later dispatch replay it on
+    the current stream: the same kernels in the same order, launched by
+    the device, the payload in the graph's own output.  The first
+    dispatch runs eagerly, so a call of one chunk captures nothing and
+    the capture finds the library handles and workspaces made.  A replay
+    adds the K2 launches the graph holds to K2's launch counters; the
+    capture, which launches nothing, adds none."""
+
+    def __init__(self, frontier, occupancy, chunk: int, run, graph: bool):
+        self.frontier = {k: frontier[k].clone() for k in _FRONTIER_KEYS}
+        self.occupancy = occupancy.clone()
+        self.chunk = chunk
+        self._run = run
+        self._graphable = graph
+        self._graph = None
+        self._started = False
+
+    def load(self, frontier) -> None:
+        for k in _FRONTIER_KEYS:
+            self.frontier[k].copy_(frontier[k])
+
+    def _chunk(self):
+        accepted, occupancy, packed = self._run(self.occupancy, self.frontier)
+        self.load(accepted)
+        self.occupancy.copy_(occupancy)
+        return packed
+
+    def _capture(self):
+        counters = (sample_normalized_patches,
+                    sample_normalized_patches_sharded)
+        before = [f.launches for f in counters]
+        device = self.occupancy.device
+        current = torch.cuda.current_stream(device)
+        side, last = _CAPTURE.get(device) or (torch.cuda.Stream(device), None)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            self._graph = torch.cuda.CUDAGraph()
+            self._graph.capture_begin(
+                pool=None if last is None else last.pool(),
+                capture_error_mode="thread_local")
+            self._packed = self._chunk()
+            self._graph.capture_end()
+        current.wait_stream(side)
+        _CAPTURE[device] = (side, self._graph)
+        self._k2 = [f.launches - b for f, b in zip(counters, before)]
+        for f, b in zip(counters, before):
+            f.launches = b
+
+    def dispatch(self):
+        dense_reconstruction.rounds_dispatched += self.chunk
+        if not self._started:
+            self._started = True
+            dense_reconstruction.rounds_first += self.chunk
+            return self._chunk()
+        if not self._graphable:
+            return self._chunk()
+        if self._graph is None:
+            self._capture()
+        self._graph.replay()
+        sample_normalized_patches.launches += self._k2[0]
+        sample_normalized_patches_sharded.launches += self._k2[1]
+        dense_reconstruction.rounds_replayed += self.chunk
+        return self._packed
 
 
 def _pad_rows(v, rows: int):
@@ -333,6 +426,12 @@ def dense_reconstruction(
     where that is None), with ``mvs.seed``, ``mvs.expand`` (its
     ``dispatch``, ``wait`` and ``merge``) and ``mvs.filter``;
     ``DenseReconstruction.timers`` is the view of ``mvs``'s children.
+
+    The expansion rounds count into ``dense_reconstruction.rounds_dispatched``,
+    ``dense_reconstruction.rounds_first`` (those of each call's first
+    chunk, which runs eagerly) and ``dense_reconstruction.rounds_replayed``
+    (those run by CUDA graph replay: on a mesh of one CUDA device in one
+    process, ``_Rounds``; eager elsewhere).
     """
     timers = recon.timers if recon.timers is not None else StageTimer()
     with timers.stage("mvs") as path:
@@ -341,6 +440,13 @@ def dense_reconstruction(
             checkpoint_every, device, kernels, timers)
     dense.timers = timers.view(path)
     return dense
+
+
+# Process counters of the expansion rounds enqueued: all of them, those of
+# each call's first chunk, and those run by CUDA graph replay.
+dense_reconstruction.rounds_dispatched = 0
+dense_reconstruction.rounds_first = 0
+dense_reconstruction.rounds_replayed = 0
 
 
 def _dense_reconstruction(images, calib, recon, config, scale, mesh,
@@ -386,6 +492,18 @@ def _dense_reconstruction(images, calib, recon, config, scale, mesh,
         _mvs_fingerprint(images, config, bound, scale) if checkpoint_dir else ""
     )
     fingerprint = f"{base_fp}|nb{n_state}"
+    # config.rounds_per_call rounds go in one chunk: enqueued back to back
+    # with no host read and no backlog merge between them (mvs/expand.py).
+    chunk = max(config.rounds_per_call, 1)
+
+    def run_chunk(occ, fr):
+        return expansion_round(
+            *shards, centers_cam, occ,
+            fr["c"], fr["n"], fr["vis"], fr["proj"], fr["valid"],
+            knobs, bound, cap, scale, kernels=kernels, mesh=mesh,
+            rounds_per_call=chunk,
+        )
+
     state = ckpt.load_mvs_state(checkpoint_dir)
     resumed = state is not None
     if resumed:
@@ -417,22 +535,13 @@ def _dense_reconstruction(images, calib, recon, config, scale, mesh,
         all_ref = [state["acc_ref"]]
         metrics.record("mvs_num_seeds", n_seeds)
         metrics.record("mvs_resumed_at_round", rounds)
-    # config.rounds_per_call rounds go in one chunk: enqueued back to back
-    # with no host read and no backlog merge between them (mvs/expand.py).
-    chunk = max(config.rounds_per_call, 1)
+        expansion = _Rounds(frontier, occupancy, chunk, run_chunk,
+                            graphable(mesh))
 
     def dispatch():
         """Enqueue the next chunk and its payload's copy to the host."""
-        nonlocal frontier, occupancy
         with span("dispatch"):
-            frontier, occupancy, packed = expansion_round(
-                *shards, centers_cam, occupancy,
-                frontier["c"], frontier["n"], frontier["vis"],
-                frontier["proj"], frontier["valid"],
-                knobs, bound, cap, scale, kernels=kernels, mesh=mesh,
-                rounds_per_call=chunk,
-            )
-            return _HostCopy(packed)
+            return _HostCopy(expansion.dispatch())
 
     # A fresh split already holds the OLDEST `cap` valid seeds, so the
     # first round runs without a merge (FIFO order).  A resumed frontier is
@@ -455,6 +564,8 @@ def _dense_reconstruction(images, calib, recon, config, scale, mesh,
             # before round 1 so that round 1 does not hold it up.
             seed_copy = _HostCopy(seed_packed)
         frontier, backlog = _split_frontier(seeds, cap)
+        expansion = _Rounds(frontier, occupancy, chunk, run_chunk,
+                            graphable(mesh))
         # Enqueue round 1 before the seed payload is read: it never needs
         # a merge, and the budget loop certainly runs it (n_seeds <=
         # num_tracks < max_patches).
@@ -499,7 +610,7 @@ def _dense_reconstruction(images, calib, recon, config, scale, mesh,
         host = lambda x: x.cpu().numpy()  # noqa: E731
         st = {
             "fingerprint": np.asarray(fingerprint),
-            "occupancy": host(occupancy),
+            "occupancy": host(expansion.occupancy),
             "counters": np.asarray(
                 [total, rounds, dropped_candidates, n_seeds], np.int64
             ),
@@ -510,7 +621,7 @@ def _dense_reconstruction(images, calib, recon, config, scale, mesh,
             "acc_ref": np.concatenate(all_ref).astype(np.int32),
         }
         for k in _FRONTIER_KEYS:
-            st["f_" + k] = host(frontier[k])
+            st["f_" + k] = host(expansion.frontier[k])
         if backlog:
             for k in _FRONTIER_KEYS:
                 st["b_" + k] = host(backlog[k])
@@ -528,8 +639,9 @@ def _dense_reconstruction(images, calib, recon, config, scale, mesh,
                 if bl_count and not skip_first_merge:
                     # A device-side merge: the span is its issue cost.
                     with span("merge"):
-                        frontier, backlog = _merge_backlog(frontier, backlog,
-                                                           cap)
+                        merged, backlog = _merge_backlog(
+                            expansion.frontier, backlog, cap)
+                        expansion.load(merged)
                     backlog_rounds += 1
                     # The merge folds bl_count backlog rows + fr_valid
                     # frontier rows into the next frontier (capped at

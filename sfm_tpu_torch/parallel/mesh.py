@@ -284,6 +284,15 @@ def data_mesh(
     return mesh
 
 
+def graphable(mesh: DataMesh) -> bool:
+    """Whether a stage on ``mesh`` can replay a CUDA graph: a mesh of one
+    CUDA shard in one process, whose ``replicate`` and ``psum`` move
+    nothing (BA's PCG solve, ``ba/solver.py``; MVS's expansion rounds,
+    ``mvs/pipeline.py``)."""
+    return (mesh.size == 1 and mesh.lead.type == "cuda"
+            and not isinstance(mesh, GroupMesh))
+
+
 def shard_batch(n: int, num_shards: int) -> int:
     """Per-shard padded length so ``n`` items split evenly over shards."""
     return -(-n // num_shards)

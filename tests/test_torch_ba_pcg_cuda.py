@@ -59,7 +59,7 @@ def test_graph_eager_and_per_iteration_solves_are_bit_equal(problem,
     solves, iters, _, graphed = graph_counts
     assert solves > 0 and iters > 0
     assert graphed == solves
-    monkeypatch.setattr(solver, "_graphable", lambda mesh: False)
+    monkeypatch.setattr(solver, "graphable", lambda mesh: False)
     eager, eager_counts = solve_counted(problem)
     monkeypatch.setattr(solver, "_pcg", pcg_per_iteration)
     loop, loop_counts = solve_counted(problem)

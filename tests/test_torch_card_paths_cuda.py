@@ -6,6 +6,13 @@ points in ~30 rounds and stops on a dry round):
   merge and round make no synchronizing CUDA call under
   ``torch.cuda.set_sync_debug_mode("error")``, each payload equal to the
   same call's outside that mode;
+- MVS's rounds by CUDA graph replay (``mvs/pipeline.py:_Rounds``) on a
+  16-frame ring: the eager stage's cloud, counters and K2 launches bit for
+  bit, with a backlog and with chunks enqueued ahead; a replayed round
+  and its capture make no synchronizing call; a profiled session of
+  replays holds one ``gather_kernel`` for each K2 launch counted; stages
+  one after another reuse the graphs' memory; the benchmark's
+  ``mvs_round_graph_share`` reads 1.0;
 - the kernels' launches over the stages: K4, K1 and K2 once each in SfM,
   no image kernel in BA, and in MVS one K2 sweep for the seeds plus one a
   round enqueued by the dispatch-ahead rule (``mvs_rounds.enqueued_rounds``),
@@ -316,18 +323,12 @@ def test_stages_on_four_virtual_shards(scene, unsharded):
                          "sample_normalized_patches_sharded": k2}
 
 
-def test_round_makes_no_synchronizing_call(scene, unsharded):
-    """One ``expansion_round`` at the MVS defaults on the seeded frontier,
-    a chunk of two rounds, then at ``BACKLOG_CAP`` the frontier split with
-    a backlog, a round, the backlog merge and a round: first outside
-    ``set_sync_debug_mode("error")`` (which also warms every op), then
-    inside it, where a synchronizing CUDA call raises (as a host read
-    there shows), each payload equal to the first pass's."""
+def seeded_on_card(scene, unsharded):
+    """The ring's MVS operands on cuda:0 at the MVS defaults: (gray, K, R,
+    t, camera centres), the seeds and the seeded occupancy."""
     from sfm_tpu_torch.config import MvsConfig
     from sfm_tpu_torch.io.images import device_gray
     from sfm_tpu_torch.mvs.cells import make_occupancy
-    from sfm_tpu_torch.mvs.expand import expansion_round
-    from sfm_tpu_torch.mvs.pipeline import _merge_backlog, _split_frontier
     from sfm_tpu_torch.mvs.seed import build_seed_candidates, seed_patches
 
     images, _ = scene
@@ -345,6 +346,23 @@ def test_round_makes_no_synchronizing_call(scene, unsharded):
     occ = make_occupancy(n, h, w, cfg.cell_size, dev)
     seeds, occ, _ = seed_patches(gray, K, R, t, C, *ints, recon.num_tracks, occ,
                                  cfg, cfg.visible_lower_bound)
+    return (gray, K, R, t, C), seeds, occ
+
+
+def test_round_makes_no_synchronizing_call(scene, unsharded):
+    """One ``expansion_round`` at the MVS defaults on the seeded frontier,
+    a chunk of two rounds, then at ``BACKLOG_CAP`` the frontier split with
+    a backlog, a round, the backlog merge and a round: first outside
+    ``set_sync_debug_mode("error")`` (which also warms every op), then
+    inside it, where a synchronizing CUDA call raises (as a host read
+    there shows), each payload equal to the first pass's."""
+    from sfm_tpu_torch.config import MvsConfig
+    from sfm_tpu_torch.mvs.expand import expansion_round
+    from sfm_tpu_torch.mvs.pipeline import _merge_backlog, _split_frontier
+
+    dev = torch.device("cuda", 0)
+    cfg = MvsConfig()
+    (gray, K, R, t, C), seeds, occ = seeded_on_card(scene, unsharded)
     keys = ("c", "n", "vis", "proj", "valid")
 
     def step(fr, occ, cap, k=1):
@@ -377,6 +395,185 @@ def test_round_makes_no_synchronizing_call(scene, unsharded):
     assert int(got["backlog_left"]) > 0, "the backlog case kept no backlog"
     for k in got:
         assert torch.equal(got[k], want[k]), k
+
+
+# --- expansion rounds by CUDA graph replay (mvs/pipeline.py:_Rounds) --------
+
+ROUND_COUNTERS = ("rounds_dispatched", "rounds_first", "rounds_replayed")
+
+
+def round_counts():
+    from sfm_tpu_torch.mvs import dense_reconstruction
+
+    return [getattr(dense_reconstruction, k) for k in ROUND_COUNTERS]
+
+
+@pytest.fixture(scope="module")
+def ring16(card):
+    """A 16-frame 200x150 ring (the view gate's rig size) through SfM and
+    points-only BA on cuda:0: (images, BA's reconstruction)."""
+    from sfm_tpu_torch.ba import bundle_adjust
+    from sfm_tpu_torch.config import BaConfig, PipelineConfig, RuntimeConfig
+    from sfm_tpu_torch.sfm import structure_from_motion
+    from sfm_tpu_torch.utils import synth
+
+    images, calib = synth.render_scene(synth.ring_rig(16), w=200, h=150,
+                                       seed=0)
+    cfg = PipelineConfig(runtime=RuntimeConfig(device="cuda", kernels=True))
+    sparse = structure_from_motion(images.copy(), calib, cfg)
+    ba, _ = bundle_adjust(sparse, BaConfig(dtype="float32"), device="cuda")
+    return images, ba
+
+
+def mvs_on_card(images, recon, cfg):
+    """(``dense_reconstruction`` on cuda:0 at scale 1, the launches over
+    it, the round counters' increments over it)."""
+    from sfm_tpu_torch.mvs import dense_reconstruction
+
+    before = round_counts()
+    dense, launches = counted(lambda: dense_reconstruction(
+        images, recon.calib, recon, cfg, scale=1.0, device="cuda"))
+    return dense, launches, [b - a for a, b in zip(before, round_counts())]
+
+
+@pytest.mark.parametrize("cap,chunk", [(BACKLOG_CAP, 1), (BACKLOG_CAP, 2),
+                                       (32768, 1)])
+def test_replayed_rounds_give_the_eager_cloud(ring16, monkeypatch, cap, chunk):
+    """MVS on the 16-frame ring with every chunk after the first replayed
+    as a CUDA graph, against the same stage with the graph off (the eager
+    body on the same buffers): the same cloud and counters bit for bit,
+    the same K2 launches counted; at ``BACKLOG_CAP`` the frontier
+    overflows into a backlog merged back between replays, and at the
+    default capacity the loop enqueues chunks ahead of its reads."""
+    from sfm_tpu_torch.config import MvsConfig
+    from sfm_tpu_torch.mvs import pipeline
+
+    images, recon = ring16
+    cfg = MvsConfig(round_capacity=cap, rounds_per_call=chunk)
+    graph, l_graph, c_graph = mvs_on_card(images, recon, cfg)
+    monkeypatch.setattr(pipeline, "graphable", lambda mesh: False)
+    eager, l_eager, c_eager = mvs_on_card(images, recon, cfg)
+    mv = graph.metrics.values
+    assert mv["mvs_rounds"] > 2 * chunk
+    if cap == BACKLOG_CAP:
+        assert mv["mvs_seed_frontier_deferred"] > 0
+        assert mv["mvs_backlog_rounds"] > 0
+    assert graph.num_seeds == eager.num_seeds
+    for f in ("points", "colors", "normals", "scores", "refs"):
+        np.testing.assert_array_equal(getattr(graph, f), getattr(eager, f), f)
+    assert mv == eager.metrics.values
+    k2 = ("sample_normalized_patches", "sample_normalized_patches_sharded")
+    assert [l_graph[k] for k in k2] == [l_eager[k] for k in k2]
+    assert l_graph["sample_normalized_patches"] > mv["mvs_rounds"]
+    dispatched, first, replayed = c_graph
+    assert first == chunk and replayed == dispatched - first > 0
+    assert c_eager == [dispatched, first, 0]
+
+
+def test_replayed_round_makes_no_synchronizing_call(scene, unsharded):
+    """``_Rounds`` at the MVS defaults on the seeded frontier: its first
+    dispatch eager outside ``set_sync_debug_mode("error")``, then the
+    capture with its replay and two more replays inside it, where a
+    synchronizing CUDA call raises; each payload equal to the same
+    dispatch of the eager body."""
+    from sfm_tpu_torch.config import MvsConfig
+    from sfm_tpu_torch.mvs.expand import expansion_round
+    from sfm_tpu_torch.mvs.pipeline import _FRONTIER_KEYS, _Rounds, _split_frontier
+
+    dev = torch.device("cuda", 0)
+    cfg = MvsConfig()
+    ops, seeds, occ = seeded_on_card(scene, unsharded)
+
+    def run(occ, fr):
+        return expansion_round(*ops, occ, *(fr[k] for k in _FRONTIER_KEYS),
+                               cfg, cfg.visible_lower_bound,
+                               cfg.round_capacity, 1.0)
+
+    def rounds(graph):
+        fr, _ = _split_frontier(seeds, cfg.round_capacity)
+        return _Rounds(fr, occ, 1, run, graph)
+
+    eager = rounds(False)
+    want = [eager.dispatch().clone() for _ in range(4)]
+    graphed = rounds(True)
+    got = [graphed.dispatch().clone()]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):  # the mode catches a host read
+            torch.ones(1, device=dev).item()
+        got += [graphed.dispatch().clone() for _ in range(3)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert graphed._graph is not None
+    assert float(want[1][:-1, 10].sum()) > 0, "round 2 accepted nothing"
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), f"dispatch {i + 1}"
+    for k in _FRONTIER_KEYS:
+        assert torch.equal(graphed.frontier[k], eager.frontier[k]), k
+    assert torch.equal(graphed.occupancy, eager.occupancy)
+
+
+def test_profiled_replays_show_every_counted_k2_launch(ring16):
+    """The benchmark accepts a profiled session only where the trace holds
+    one ``gather_kernel`` for each K2 launch the program counted
+    (``benchkit/harness.py:_profile``): in a session of a stage whose
+    chunks replay a CUDA graph, K2's launch counter agrees with the trace
+    (``tools/measure.py:profiled`` retakes a session that does not)."""
+    from sfm_tpu_torch.config import MvsConfig
+    from sfm_tpu_torch.ops.gather import sample_normalized_patches
+    from sfm_tpu_torch.tools.measure import kernel_named, profiled
+
+    images, recon = ring16
+
+    def body():
+        k2 = sample_normalized_patches.launches
+        _, _, (_, _, replayed) = mvs_on_card(images, recon, MvsConfig())
+        return sample_normalized_patches.launches - k2, replayed
+
+    def accept(result, events):
+        return sum(kernel_named(e.name, "gather_kernel")
+                   for e in events) == result[0]
+
+    (k2, replayed), _, _ = profiled(body, accept, what="replayed rounds")
+    assert replayed > 0 and k2 > replayed
+
+
+def test_successive_stages_reuse_the_graph_memory(ring16):
+    """Stages one after another on cuda:0, each capturing its own round
+    graph: each capture takes the last graph's memory pool, so after the
+    second stage neither the allocated nor the reserved device memory
+    grows."""
+    from sfm_tpu_torch.config import MvsConfig
+
+    images, recon = ring16
+    seen = []
+    for _ in range(4):
+        _, _, (_, _, replayed) = mvs_on_card(images, recon, MvsConfig())
+        assert replayed > 0
+        seen.append((torch.cuda.memory_allocated(), torch.cuda.memory_reserved()))
+    assert seen[2:] == seen[1:2] * 2, seen
+
+
+def test_round_graph_share_reads_one(ring16, monkeypatch):
+    """The benchmark's ``mvs_round_graph_share`` after a stage on cuda:0
+    (the process counters from zero): every round after the first chunk
+    replayed."""
+    sys.path.insert(0, os.path.join(ROOT, "benchmark"))
+    from benchkit.catalog import Catalog
+    from benchkit.harness import RunData
+    from sfm_tpu_torch.config import MvsConfig
+    from sfm_tpu_torch.mvs import dense_reconstruction
+
+    for k in ROUND_COUNTERS:
+        monkeypatch.setattr(dense_reconstruction, k, 0)
+    images, recon = ring16
+    mvs_on_card(images, recon, MvsConfig())
+    cat = Catalog(ROOT)
+    (entry,) = [m for m in cat.spec["per_layer"]
+                if m["name"] == "mvs_round_graph_share"]
+    assert cat.reader(entry).read(RunData(frames=16, shapes={})) == 1.0
 
 
 def test_one_process_nccl_group_runs_ba_as_one_device(card):
